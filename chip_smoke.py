@@ -4,33 +4,80 @@
 
 Phases, each printing one JSON line:
 
-1. the card (``nvidia-smi`` name and power limit); fails without CUDA;
-2. build the CUDA kernels from ``lesv_tpu_torch/csrc`` (nvcc, sm_90a);
-3. the fill kernel against its plain PyTorch version at the shapes the
-   map stage gives it (diag W=512, full W=4096, full W=65, diag with
-   free_end), and the traceback kernel against its plain version on the
-   kernel's direction bytes -- exact equality, timed with CUDA events;
-4. the chain-scan kernel against its plain version at B=128, J=64,
-   M=16384 and M=8192 -- exact equality, timed;
-5. the map stage at a size users run: a 64 Mb simulated reference with
-   planted SVs, 512 reads of mean length 12 kb at 10% error, mapped on
-   the GPU through ``lesv_tpu_torch.pipeline.mapper.map_all``; every
-   kernel must have launched, and the M4 records of the first 32 reads
-   must equal those of lesv_tpu's JAX-free host engine.
+1. ``device``: the card (``nvidia-smi`` name and power limit); fails
+   without CUDA;
+2. ``build``: the CUDA kernels from ``lesv_tpu_torch/csrc`` (nvcc, sm_90a,
+   one nvcc per source, all at once) and the native host library (g++);
+3. ``fill``: the int32 fill kernel against its plain PyTorch version at the
+   shapes the map stage gives it (diag W=512, full W=4096, full W=65, diag
+   with free_end), and the traceback kernel against its plain version on
+   the kernel's direction bytes; then the int16 fill kernel at shapes where
+   its gate holds (full Q=64 W=65, diag Q=256 W=512, diag Q=256 W=128 with
+   free_end) against its plain int16 version (every live direction byte,
+   score, end cell, ok) and against the int32 kernel (score, end cell, ok
+   and the ops of the traceback kernel), and one shape outside the gate,
+   which must raise.  Exact equality (tolerance 0: all values are
+   integers); timed with CUDA events;
+4. ``chain``: the chain-scan kernel against its plain version at B=128,
+   J=64, M=16384 and M=8192 -- exact equality, timed;
+5. ``map``: the map stage at a size users run: a 64 Mb simulated reference
+   with planted SVs, 512 reads of mean length 12 kb at 10% error, mapped on
+   the GPU through ``lesv_tpu_torch.pipeline.mapper.map_all``; every kernel
+   must have launched, and the M4 records of the first 32 reads must equal
+   those of the port's host engine (host seeding and chaining, plain fills
+   on CPU tensors);
+6. ``run``: reads to a VCF through
+   ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on a
+   16 Mb simulated reference with 20 DEL + 20 INS planted and reads at
+   coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
+   counts, launches per kernel for the map stage and for the stages after
+   it (every kernel must launch in both), recall and precision of the calls
+   against the planted truth (both at least 0.9), ``calls.vcf`` parsed
+   back, and a second call with ``resume=True`` that returns the same calls
+   without launching a kernel.
 
-The last two lines are the kernel table and
+Then the card's ``nvidia-smi`` line, the kernel table and
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
+
+Bounds in the kernel table: ``bound_ms`` is the larger of the bytes the
+function must move (inputs read once, outputs written once, counted from
+this run's lengths) over 3.35 TB/s, and the integer operations of its
+recurrence on this run's inputs, counted as a sequential walk of one lane
+would do them (nothing of this kernel's two-phase scan), over the rate of
+the CUDA cores for their type: 16.75 TOP/s in int32 (64 int32 lanes per SM
+against 128 float32 lanes with a two-operation FMA, so a quarter of the
+published 67 TFLOP/s float32 rate) and twice that, 33.5 TOP/s, for the
+int16 fill, whose operations exist as packed two-values-per-lane
+instructions.
+No single PyTorch call computes any of these functions, so ``library_ms``
+is null.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 67e12 / 4
+INT16_OPS_S = 2 * INT32_OPS_S  # packed pairs of 16-bit values per lane
+# integer operations of one DP cell of the fill recurrence, walked in
+# sequence: substitution 2 (compare, select), diagonal 1 (add), F1/F2 6
+# (extend, open, max, twice), E1/E2 6 (the same along the row), H 4 (max of
+# five), band mask 3, extension flags 4 (compares), source 8 (four compares
+# and selects), byte packing 8 (four shifts and ors)
+FILL_OPS_PER_CELL = 42
+# one (seed, predecessor) pair of the chain scan: distances 9, gates 11,
+# score 9, running best 5
+CHAIN_OPS_PER_PAIR = 34
+# one traceback step: address 4, decode 8, state update 8
+TRACEBACK_OPS_PER_STEP = 20
 
 
 def emit(obj) -> None:
@@ -65,44 +112,68 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
+def bound(nbytes: int, ops: int, ops_s: float = INT32_OPS_S) -> dict:
+    by, op = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
+    return dict(bound_ms=max(by, op),
+                bound_by="bytes" if by >= op else "operations",
+                bound_bytes=nbytes, bound_ops=ops)
+
+
 def fill_case(rng, kind: str):
     """(q, s, qlen, slen, W, mode, free_end) numpy batch of one shape."""
     import numpy as np
 
-    from lesv_tpu.sim import mutate_read
+    from lesv_tpu_torch.sim import mutate_read
+
+    def rand(n):
+        return rng.integers(0, 4, int(n)).astype(np.uint8)
 
     if kind == "diag_W512":
         B, Q, W, mode, fe = 256, 4096, 512, "diag", False
         pairs = []
         for _ in range(B):
-            s = rng.integers(0, 4, int(rng.integers(3600, 4000))).astype(
-                np.uint8)
+            s = rand(rng.integers(3600, 4000))
             pairs.append((mutate_read(rng, s, err=0.1)[:Q], s))
         S = Q + W
     elif kind == "full_W4096_del":
         B, Q, W, mode, fe = 8, 128, 4096, "full", False
         pairs = []
         for _ in range(B):
-            s = rng.integers(0, 4, 2100).astype(np.uint8)
+            s = rand(2100)
             cut = int(rng.integers(30, 70))
             q = np.concatenate([s[:cut], s[cut + 2000 :]])
             pairs.append((mutate_read(rng, q, err=0.05)[:Q], s))
         S = W
-    elif kind == "full_W65":
+    elif kind in ("full_W65", "i16_full_Q64_W65"):
         B, Q, W, mode, fe = 1024, 64, 65, "full", False
         pairs = []
         for _ in range(B):
-            s = rng.integers(0, 4, int(rng.integers(20, 64))).astype(np.uint8)
+            s = rand(rng.integers(20, 64))
             pairs.append((mutate_read(rng, s, err=0.2)[:Q], s))
         S = 64
+    elif kind == "i16_diag_Q256_W512":
+        B, Q, W, mode, fe = 256, 256, 512, "diag", False
+        pairs = []
+        for _ in range(B):
+            s = rand(rng.integers(130, 256))
+            pairs.append((mutate_read(rng, s, err=0.15)[:Q], s))
+        S = Q + W
+    elif kind == "i16_diag_Q256_W128_free_end":
+        B, Q, W, mode, fe = 256, 256, 128, "diag", True
+        pairs = []
+        for _ in range(B):
+            s = rand(384)
+            n = int(rng.integers(60, 256))
+            q = np.concatenate([mutate_read(rng, s[:n], err=0.1), rand(120)])
+            pairs.append((q[:Q], s))
+        S = Q + W
     else:  # "diag_W1024_free_end": end-extension blocks
         B, Q, W, mode, fe = 64, 2048, 1024, "diag", True
         pairs = []
         for _ in range(B):
-            s = rng.integers(0, 4, 2624).astype(np.uint8)
+            s = rand(2624)
             n = int(rng.integers(600, 1800))
-            q = np.concatenate([mutate_read(rng, s[:n], err=0.1),
-                                rng.integers(0, 4, 400).astype(np.uint8)])
+            q = np.concatenate([mutate_read(rng, s[:n], err=0.1), rand(400)])
             pairs.append((q[:Q], s))
         S = Q + W
     q = np.zeros((B, Q), np.uint8)
@@ -117,35 +188,63 @@ def fill_case(rng, kind: str):
     return q, s, qlen, slen, W, mode, fe
 
 
+def fill_bound(qln, sln, W, ops_s: float = INT32_OPS_S) -> dict:
+    """Least time of one fill: q and s read once, one direction byte per
+    cell of the rows 0..qlen written once, the 13 bytes of results per
+    lane; FILL_OPS_PER_CELL operations per cell of the rows 1..qlen, at
+    ops_s operations a second."""
+    rows = int(qln.sum())
+    B = len(qln)
+    return bound(rows + int(sln.sum()) + 8 * B + (rows + B) * W + 13 * B,
+                 rows * W * FILL_OPS_PER_CELL, ops_s)
+
+
+def _fill_outputs_equal(a, b, qlen, dirs: bool):
+    """(all equal, dirs equal on live rows, max |difference| of the score,
+    end cell and ok)."""
+    import torch
+
+    ad, asc, aei, aeb, aok = a
+    bd, bsc, bei, beb, bok = b
+    err = max(int((asc - bsc).abs().max()), int((aei - bei).abs().max()),
+              int((aeb - beb).abs().max()),
+              int((aok.int() - bok.int()).abs().max()))
+    dirs_eq = True
+    if dirs:
+        live = (torch.arange(ad.shape[1], device=ad.device)[None, :, None]
+                <= qlen[:, None, None])
+        dirs_eq = not bool(torch.where(live, ad != bd, False).any())
+    return err == 0 and dirs_eq, dirs_eq, err
+
+
 def phase_fill(rng, stats):
     import torch
 
-    from lesv_tpu.config import AlignConfig
+    from lesv_tpu_torch.config import AlignConfig
     from lesv_tpu_torch.ops import align_torch as at
 
     cfg = AlignConfig()
     dev = torch.device("cuda")
+
+    def upload(kind):
+        qn, sn, qln, sln, W, mode, fe = fill_case(rng, kind)
+        t = [torch.from_numpy(x).to(dev) for x in (qn, sn, qln, sln)]
+        return t, qln, sln, W, mode, fe
+
     for kind in ("diag_W512", "full_W4096_del", "full_W65",
                  "diag_W1024_free_end"):
-        qn, sn, qln, sln, W, mode, fe = fill_case(rng, kind)
-        q, s = torch.from_numpy(qn).to(dev), torch.from_numpy(sn).to(dev)
-        ql, sl = torch.from_numpy(qln).to(dev), torch.from_numpy(sln).to(dev)
+        (q, s, ql, sl), qln, sln, W, mode, fe = upload(kind)
         B, Q = q.shape
 
         def kern():
             return at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe)
 
         k_ms = cuda_ms(kern, 3)
-        kd, ks, kei, keb, kok = kern()
-        p_ms, (pd, ps, pei, peb, pok) = once_ms(
+        kout = kern()
+        kd, ks, kei, keb, kok = kout
+        p_ms, pout = once_ms(
             lambda: at.banded_align_kernel(q, s, ql, sl, W, mode, cfg, fe))
-        live = (torch.arange(Q + 1, device=dev)[None, :, None]
-                <= ql[:, None, None])
-        dirs_eq = not bool(torch.where(live, kd != pd, False).any())
-        err = max(int((ks - ps).abs().max()), int((kei - pei).abs().max()),
-                  int((keb - peb).abs().max()),
-                  int((kok.int() - pok.int()).abs().max()))
-        eq = err == 0 and dirs_eq
+        eq, dirs_eq, err = _fill_outputs_equal(kout, pout, ql, dirs=True)
         # traceback on the kernel's direction bytes
         T = Q + 1 + W + 2
 
@@ -159,22 +258,92 @@ def phase_fill(rng, stats):
         tb_eq = (torch.equal(kops, pops) and torch.equal(kn, pn)
                  and torch.equal(kr, pr))
         cells = int(qln.sum()) * W
-        rec = dict(phase="fill", case=kind, B=B, Q=Q, W=W, mode=mode,
-                   free_end=fe, equal=eq, dirs_equal=dirs_eq,
-                   max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
-                   kernel_gcells_s=cells / k_ms / 1e6,
-                   plain_gcells_s=cells / p_ms / 1e6,
-                   traceback_equal=tb_eq, traceback_ms=t_ms,
-                   traceback_plain_ms=tp_ms,
-                   traceback_lanes_s=B / t_ms * 1e3,
-                   reached=int(kr.sum()))
-        emit(rec)
+        steps = int(kn.sum())
+        fb = fill_bound(qln, sln, W)
+        # traceback: one direction byte read per step, T op bytes and 13
+        # bytes of end cell / results per lane
+        tbb = bound(steps + B * T + 13 * B, steps * TRACEBACK_OPS_PER_STEP)
+        emit(dict(phase="fill", kernel="fill", case=kind, B=B, Q=Q, W=W,
+                  mode=mode, free_end=fe, equal=eq, dirs_equal=dirs_eq,
+                  max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                  bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
+                  kernel_gcells_s=cells / k_ms / 1e6,
+                  plain_gcells_s=cells / p_ms / 1e6,
+                  traceback_equal=tb_eq, traceback_ms=t_ms,
+                  traceback_plain_ms=tp_ms,
+                  traceback_bound_ms=tbb["bound_ms"],
+                  traceback_steps=steps,
+                  traceback_lanes_s=B / t_ms * 1e3,
+                  reached=int(kr.sum())))
         if not (eq and tb_eq):
             raise AssertionError(f"fill/traceback mismatch in {kind}")
         if kind == "diag_W512":
-            stats["fill"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err)
-            stats["traceback"] = dict(ms=t_ms, plain_ms=tp_ms,
-                                      max_abs_err=0)
+            stats["fill"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                                 shape=f"diag B={B} Q={Q} W={W}", **fb)
+            stats["traceback"] = dict(
+                ms=t_ms, plain_ms=tp_ms, max_abs_err=0,
+                shape=f"diag B={B} R={Q + 1} W={W} T={T}", **tbb)
+
+    for kind in ("i16_full_Q64_W65", "i16_diag_Q256_W512",
+                 "i16_diag_Q256_W128_free_end"):
+        (q, s, ql, sl), qln, sln, W, mode, fe = upload(kind)
+        B, Q = q.shape
+        if not at.i16_ok(Q, W, cfg):
+            raise AssertionError(f"{kind}: the int16 gate should hold")
+
+        def kern16():
+            return at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=True)
+
+        def kern32():
+            return at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=False)
+
+        # in turns: int32, int16, int16, int32
+        a32 = cuda_ms(kern32, 5)
+        a16 = cuda_ms(kern16, 5)
+        b16 = cuda_ms(kern16, 5)
+        b32 = cuda_ms(kern32, 5)
+        k_ms, k32_ms = (a16 + b16) / 2, (a32 + b32) / 2
+        kout, wout = kern16(), kern32()
+        p_ms, pout = once_ms(lambda: at.banded_align_kernel(
+            q, s, ql, sl, W, mode, cfg, fe, i16=True))
+        eq, dirs_eq, err = _fill_outputs_equal(kout, pout, ql, dirs=True)
+        eq32, _, err32 = _fill_outputs_equal(kout, wout, ql, dirs=False)
+        T = Q + 1 + W + 2
+        t16 = at.traceback_cuda(kout[0], kout[2], kout[3], kout[4], W, mode,
+                                T)
+        t32 = at.traceback_cuda(wout[0], wout[2], wout[3], wout[4], W, mode,
+                                T)
+        ops_eq = all(torch.equal(a, b) for a, b in zip(t16, t32))
+        cells = int(qln.sum()) * W
+        fb = fill_bound(qln, sln, W, INT16_OPS_S)
+        emit(dict(phase="fill", kernel="fill_i16", case=kind, B=B, Q=Q, W=W,
+                  mode=mode, free_end=fe, equal_plain_i16=eq,
+                  dirs_equal=dirs_eq, max_abs_err=err,
+                  equal_i32_kernel=eq32, max_abs_err_vs_i32=err32,
+                  ops_equal_i32_kernel=ops_eq, kernel_ms=k_ms,
+                  i32_kernel_ms=k32_ms, plain_ms=p_ms,
+                  bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
+                  kernel_gcells_s=cells / k_ms / 1e6,
+                  reached=int(t16[2].sum())))
+        if not (eq and eq32 and ops_eq):
+            raise AssertionError(f"int16 fill mismatch in {kind}")
+        if not bool(t16[2].any()):
+            raise AssertionError(f"{kind}: no lane traced back")
+        if kind == "i16_diag_Q256_W512":
+            stats["fill_i16"] = dict(ms=k_ms, plain_ms=p_ms,
+                                     max_abs_err=max(err, err32),
+                                     i32_kernel_ms=k32_ms,
+                                     shape=f"diag B={B} Q={Q} W={W}", **fb)
+
+    # outside the gate the int16 kernel is refused, not wrapped
+    (q, s, ql, sl), _, _, W, mode, fe = upload("diag_W512")
+    try:
+        at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=True)
+    except ValueError as e:
+        emit(dict(phase="fill", kernel="fill_i16", case="gate_closed_Q4096",
+                  raised=str(e)))
+    else:
+        raise AssertionError("int16 fill outside its gate did not raise")
 
 
 def phase_chain(rng, stats):
@@ -213,30 +382,42 @@ def phase_chain(rng, stats):
             lambda: ct.chain_scan_plain(qs, ss_, vs, **args))
         err = max(int((kf - pf).abs().max()), int((kp - pp).abs().max()),
                   int((kv - pv).abs().max()))
+        # qs 4 + ss 8 + vs 1 bytes in, f/p/v 12 bytes out per slot; every
+        # valid seed scores its J predecessors
+        cb = bound(B * M * 25,
+                   int(valid.sum()) * args["J"] * CHAIN_OPS_PER_PAIR)
         emit(dict(phase="chain", B=B, M=M, J=64, equal=err == 0,
                   max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                  bound_ms=cb["bound_ms"], bound_by=cb["bound_by"],
                   kernel_seeds_s=B * M / k_ms * 1e3,
                   plain_seeds_s=B * M / p_ms * 1e3,
                   taken=int((kp > 0).sum())))
         if err:
             raise AssertionError(f"chain mismatch at M={M}")
         if M == 16384:
-            stats["chain"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err)
+            stats["chain"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                                  shape=f"B={B} M={M} J=64", **cb)
+
+
+def _require_launched(launches: dict, what: str) -> None:
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched {what}: {missing}")
 
 
 def phase_map(rng):
     import numpy as np
     import torch
 
-    from lesv_tpu.config import LesvConfig
-    from lesv_tpu.index.kmer_index import KmerIndex
-    from lesv_tpu.io.seqstore import SeqStore
-    from lesv_tpu.sim import plant_svs, random_genome, simulate_reads
-    from lesv_tpu.utils import profiling
     from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.config import LesvConfig
+    from lesv_tpu_torch.index.kmer_index import KmerIndex
+    from lesv_tpu_torch.io.seqstore import SeqStore
     from lesv_tpu_torch.ops import align_batch
     from lesv_tpu_torch.ops.seeding_torch import device_index_of
-    from lesv_tpu_torch.pipeline.mapper import map_all
+    from lesv_tpu_torch.pipeline.mapper import map_all, map_batch
+    from lesv_tpu_torch.sim import plant_svs, random_genome, simulate_reads
+    from lesv_tpu_torch.utils import profiling
 
     t0 = time.time()
     genome = random_genome(rng, 64_000_000)
@@ -271,10 +452,7 @@ def phase_map(rng):
               peak_device_bytes=torch.cuda.max_memory_allocated(),
               launches=launches, fills=fills,
               host_clock_spans={k: v["total_s"] for k, v in spans}))
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the map path: "
-                             f"{missing}")
+    _require_launched(launches, "on the map path")
     for m in m4s:
         if not (0 <= m.qoff < m.qend <= m.qsize
                 and 0 <= m.soff < m.send <= m.ssize
@@ -283,28 +461,140 @@ def phase_map(rng):
     if mapped < 0.9 * len(reads):
         raise AssertionError(f"only {mapped}/{len(reads)} reads mapped")
 
-    # oracle: lesv_tpu's host engine with the native host fills (no jax)
-    os.environ["LESV_TPU_BACKEND"] = "native"
-    from lesv_tpu.pipeline.mapper import map_batch
-
+    # oracle: the port's host engine (host seeding and chaining through
+    # the native library, plain fills on CPU tensors)
     cfg_h = LesvConfig()
     cfg_h.map.engine = "host"
     n_chk = 32
     t2 = time.time()
     want = map_batch([(q, qstore.get(q)) for q in range(n_chk)], store,
-                     index, cfg_h)
+                     index, cfg_h, device="cpu")
     key = lambda m: (m.qid, m.qdir, m.qoff, m.qend, m.soff, m.send,
-                     m.score)
+                     m.score, m.ops.tobytes())
     got = sorted(key(m) for m in m4s if m.qid < n_chk)
     want = sorted(key(m) for m in want)
     emit(dict(phase="map_oracle", reads_checked=n_chk, m4_port=len(got),
               m4_host_engine=len(want), equal=got == want,
-              only_port=[list(k) for k in sorted(set(got) - set(want))][:5],
-              only_host=[list(k) for k in sorted(set(want) - set(got))][:5],
+              only_port=[list(k[:7]) for k in sorted(set(got) - set(want))][:5],
+              only_host=[list(k[:7]) for k in sorted(set(want) - set(got))][:5],
               oracle_s=time.time() - t2))
     if got != want:
         raise AssertionError("M4 records differ from the host engine")
     return launches
+
+
+def score_calls(calls, svs):
+    """Recall and precision by the rule of the end-to-end test: a planted
+    SV is found by a call of its kind within 1000 bp whose length is
+    within 25%; a call farther than 1000 bp from every planted SV is
+    false."""
+    missed = [sv for sv in svs if not any(
+        c.kind == sv.kind and abs(c.pos - sv.ref_pos) <= 1_000
+        and abs(c.length - sv.length) <= 0.25 * sv.length for c in calls)]
+    false = [c for c in calls
+             if all(abs(c.pos - sv.ref_pos) > 1_000 for sv in svs)]
+    recall = 1.0 - len(missed) / len(svs)
+    precision = 1.0 - len(false) / len(calls) if calls else 0.0
+    return recall, precision, missed, false
+
+
+def phase_run(rng):
+    import torch
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.config import LesvConfig
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.pipeline import driver
+    from lesv_tpu_torch.sim import plant_svs, random_genome, simulate_reads
+    from lesv_tpu_torch.utils import profiling
+
+    t0 = time.time()
+    coverage = 10.0
+    genome = random_genome(rng, 16_000_000)
+    donor, truth = plant_svs(rng, genome, n_del=20, n_ins=20)
+    reads = simulate_reads(rng, donor, coverage=coverage, mean_len=12_000,
+                           err=0.1)
+    setup_s = time.time() - t0
+    bases = sum(len(r) for _, r in reads)
+    out_dir = os.path.join(REPO, "build", "smoke_run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ref = [("chrSim", genome)]
+    cfg = LesvConfig()
+
+    # the launch counts of the map stage are read, and set back to 0, at
+    # the moment the stage after it starts
+    at_map_end: dict = {}
+    select_sv_reads = driver.select_sv_reads
+
+    def first_stage_after_map(*a, **kw):
+        at_map_end.update(_ext.LAUNCHES)
+        _ext.reset_launches()
+        return select_sv_reads(*a, **kw)
+
+    _ext.reset_launches()
+    align_batch.reset_fill_stats()
+    profiling.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    driver.select_sv_reads = first_stage_after_map
+    try:
+        t1 = time.time()
+        res = driver.run_pipeline(ref, reads, cfg, out_dir=out_dir,
+                                  resume=True, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.time() - t1
+    finally:
+        driver.select_sv_reads = select_sv_reads
+    after_map = dict(_ext.LAUNCHES)
+    recall, precision, missed, false = score_calls(res.calls, truth.svs)
+    spans = sorted(profiling.report().items(),
+                   key=lambda kv: -kv[1]["total_s"])[:16]
+
+    vcf_path = os.path.join(out_dir, "calls.vcf")
+    with open(vcf_path) as fh:
+        rows = [ln.rstrip("\n").split("\t") for ln in fh
+                if not ln.startswith("#")]
+    vcf_ok = (len(rows) == len(res.calls)
+              and all(len(r) == 10 and r[0] == "chrSim" and int(r[1]) > 0
+                      and r[6] == "PASS" and "SVTYPE=" in r[7]
+                      for r in rows))
+
+    _ext.reset_launches()
+    t2 = time.time()
+    again = driver.run_pipeline(ref, reads, cfg, out_dir=out_dir,
+                                resume=True, device="cuda")
+    resume_s = time.time() - t2
+    resume_launches = dict(_ext.LAUNCHES)
+    key = lambda c: (c.subject_id, c.pos, c.kind, c.length, c.ref, c.alt,
+                     c.support, c.depth, c.genotype)
+    same = [key(c) for c in again.calls] == [key(c) for c in res.calls]
+
+    emit(dict(phase="run", genome_bp=len(genome), coverage=coverage,
+              planted=len(truth.svs), reads=len(reads), read_bases=bases,
+              setup_s=setup_s, run_s=run_s, bases_per_s=bases / run_s,
+              stage_s=res.timings, records=res.stats,
+              launches_map_stage=at_map_end,
+              launches_after_map=after_map,
+              fills=dict(align_batch.FILL_STATS),
+              peak_device_bytes=torch.cuda.max_memory_allocated(),
+              calls=len(res.calls), recall=recall, precision=precision,
+              missed=[[sv.kind, sv.ref_pos, sv.length] for sv in missed],
+              false_calls=[[c.kind, c.pos, c.length] for c in false],
+              vcf_rows=len(rows), vcf_parses=vcf_ok,
+              resume_s=resume_s, resume_same_calls=same,
+              resume_launches=resume_launches,
+              host_clock_spans={k: v["total_s"] for k, v in spans}))
+    _require_launched(at_map_end, "in the map stage of run")
+    _require_launched(after_map, "in the stages after map")
+    if recall < 0.9 or precision < 0.9:
+        raise AssertionError(f"recall {recall} / precision {precision} "
+                             "below 0.9")
+    if not vcf_ok:
+        raise AssertionError("calls.vcf does not parse back to the calls")
+    if not same or any(resume_launches.values()):
+        raise AssertionError("resume changed the calls or launched a kernel")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {k: at_map_end[k] + after_map[k] for k in after_map}, after_map
 
 
 def main() -> int:
@@ -316,38 +606,48 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch import _ext, native
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
     emit(dict(phase="device", nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
               name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count()))
     t0 = time.time()
     _ext.build()
-    emit(dict(phase="build", seconds=time.time() - t0,
+    t1 = time.time()
+    native._load()
+    emit(dict(phase="build", kernels_s=t1 - t0, native_s=time.time() - t1,
               kernels=list(_ext.KERNELS)))
     rng = np.random.default_rng(0)
     stats: dict = {}
     phase_fill(rng, stats)
     phase_chain(rng, stats)
-    launches = phase_map(rng)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    map_launches = phase_map(rng)
+    run_launches, after_map = phase_run(rng)
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "jaxlib", "lesv_tpu")
+                 or m.startswith(("jax.", "lesv_tpu.")))
+    if bad:
+        raise AssertionError(f"imported: {bad}")
     src = {"fill": ("lesv_tpu_torch/csrc/fill.cu",
                     "lesv_tpu/ops/align_pallas.py:141"),
+           "fill_i16": ("lesv_tpu_torch/csrc/fill.cu",
+                        "lesv_tpu/ops/align_pallas.py:145"),
            "chain": ("lesv_tpu_torch/csrc/chain.cu",
                      "lesv_tpu/ops/chain_pallas.py:44"),
            "traceback": ("lesv_tpu_torch/csrc/traceback.cu",
                          "lesv_tpu/ops/align_jax.py:271")}
+    print(smi, flush=True)
     emit({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
-             launches=launches[k], **stats[k])
-        for k in ("fill", "chain", "traceback")]})
+             launches=run_launches[k], launches_map_phase=map_launches[k],
+             launches_run_after_map=after_map[k], library_ms=None,
+             **stats[k])
+        for k in ("fill", "fill_i16", "chain", "traceback")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

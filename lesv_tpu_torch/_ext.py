@@ -30,7 +30,8 @@ KERNELS = ("fill", "chain", "traceback")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+# csrc/fill.cu holds two kernels (int32 and int16 state), counted apart
+LAUNCHES: dict[str, int] = {k: 0 for k in (*KERNELS, "fill_i16")}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,23 @@
 // Banded dual-affine alignment fill (ksw2-extd2 costs) for Hopper.
 //
-// Replaces lesv_tpu/ops/align_pallas.py::_fill_kernel (i32 variant) and
+// Replaces lesv_tpu/ops/align_pallas.py::_fill_kernel, both variants, and
 // its XLA twin lesv_tpu/ops/align_jax.py::banded_align_kernel: the same
-// recurrences, sentinels (NEG = -2^28, THR = NEG/2), direction bytes
-// (3-bit source + 4 extension flags) and free_end reduction (best value,
-// then lowest row, then lowest band slot).
+// recurrences, direction bytes (3-bit source + 4 extension flags) and
+// free_end reduction (best value, then lowest row, then lowest band slot).
+// The kernel is a template over the state type:
+//   int   -- sentinel NEG = -2^28, mask threshold THR = NEG/2;
+//   short -- the i16 variant: sentinel NEG16 = -16384 and
+//            THR = NEG16 + max(go1 + ge1*(W+1), go2 + ge2*(W+1)) + 16,
+//            computed by the launcher from W and the gap costs.  The
+//            caller runs it only where the gate (align_torch.i16_ok)
+//            proves that no value leaves the int16 range; every stored or
+//            compared value is cut to the state type, so the arithmetic
+//            is that of int16 tensors.  Scores leave the kernel as int32
+//            with values at or below THR mapped to the int32 sentinel.
+// The affine-gap scan bases are rebased by the row constant (band slot b
+// instead of subject column js = i - W/2 + b); the constant cancels in
+// E = scan - go - b*ge, so only b*ge enters, which is what keeps the
+// short variant in range.
 //
 // Design.  One CTA per (query, subject) pair; the W band slots are spread
 // over the CTA's threads, each thread owning a contiguous run of
@@ -16,8 +29,10 @@
 // the run maxima and a cross-warp combine in shared memory.  Row state
 // (H, E1, E2, F1, F2 and per-row temporaries) lives in shared memory when
 // it fits (W up to ~5k) and in a per-lane global scratch otherwise.
-// Direction bytes go out one row at a time in lane-major (B, Qmax+1, W)
-// layout; rows past the lane's query length are not written.
+// Row state is 2 or 4 bytes per value, so the short variant fits shared
+// memory up to twice the band.  Direction bytes go out one row at a time
+// in lane-major (B, Qmax+1, W) layout; rows past the lane's query length
+// are not written.
 //
 // What bounds it on this card: each row needs five block barriers and the
 // dependent scan, so a CTA is latency-bound on the row loop; throughput
@@ -27,15 +42,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG (-(1 << 28))
-#define THR (NEG / 2)
+#define NEG32 (-(1 << 28))
+#define NEG16 (-16384)
 #define FULLMASK 0xffffffffu
 
 // exclusive max-scan of (a, b) over the threads of the block, in thread
 // order; thread 0 gets NEG
 __device__ __forceinline__ void block_excl_max2(int a, int b, int& ea,
                                                 int& eb, int* ws1,
-                                                int* ws2) {
+                                                int* ws2, const int NEG) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   int ia = a, ib = b;
 #pragma unroll
@@ -67,30 +82,42 @@ __device__ __forceinline__ void block_excl_max2(int a, int b, int& ea,
   eb = max(pb, xb);
 }
 
-template <bool DIAG, bool FREE_END>
+// bytes of row state per lane: (6 or 8) arrays of W values and W flag
+// bytes, rounded up to a multiple of 4
+__host__ __device__ inline size_t state_bytes(int W, int free_end,
+                                              int esz) {
+  return (((size_t)(free_end ? 8 : 6) * W * esz + W + 3) / 4) * 4;
+}
+
+// T is the state type (int or short); NEG / THR its sentinel and mask
+// threshold.  Every value is cut to T where it is produced ((T)(...)), so
+// T = short computes exactly what int16 tensor arithmetic computes.
+template <typename T, bool DIAG, bool FREE_END>
 __global__ void fill_kernel(const uint8_t* __restrict__ q,
                             const uint8_t* __restrict__ s,
                             const int* __restrict__ qlen,
                             const int* __restrict__ slen, int Qmax,
                             int Smax, int W, int match, int mism, int go1,
-                            int ge1, int go2, int ge2, int* gscratch,
+                            int ge1, int go2, int ge2, const int NEG,
+                            const int THR, uint8_t* gscratch,
                             uint8_t* __restrict__ dirs, int* score,
                             int* end_i, int* end_b, uint8_t* okv) {
   extern __shared__ int smem[];
   __shared__ int ws1[32], ws2[32];
   const int lane = blockIdx.x;
   const int nA = FREE_END ? 8 : 6;
-  const size_t per_lane = (size_t)nA * W + (W + 3) / 4;
-  int* base = gscratch ? gscratch + (size_t)lane * per_lane : smem;
-  int* H = base;
-  int* E1 = H + W;
-  int* E2 = E1 + W;
-  int* F1 = E2 + W;
-  int* F2 = F1 + W;
-  int* DG = F2 + W;
-  int* BV = DG + W;            // free_end only
-  int* BR = BV + W;            // free_end only
-  uint8_t* FL = (uint8_t*)(base + (size_t)nA * W);
+  uint8_t* base =
+      gscratch ? gscratch + (size_t)lane * state_bytes(W, FREE_END, sizeof(T))
+               : (uint8_t*)smem;
+  T* H = (T*)base;
+  T* E1 = H + W;
+  T* E2 = E1 + W;
+  T* F1 = E2 + W;
+  T* F2 = F1 + W;
+  T* DG = F2 + W;
+  T* BV = DG + W;              // free_end only
+  T* BR = BV + W;              // free_end only
+  uint8_t* FL = base + (size_t)nA * W * sizeof(T);
 
   const int nt = blockDim.x, tid = threadIdx.x;
   const int spt = (W + nt - 1) / nt;
@@ -114,14 +141,14 @@ __global__ void fill_kernel(const uint8_t* __restrict__ q,
       e1 = NEG;
       e2 = NEG;
     }
-    H[b] = h;
-    E1[b] = e1;
-    E2[b] = e2;
-    F1[b] = NEG;
-    F2[b] = NEG;
+    H[b] = (T)h;
+    E1[b] = (T)e1;
+    E2[b] = (T)e2;
+    F1[b] = (T)NEG;
+    F2[b] = (T)NEG;
     dl[b] = (uint8_t)((e1 >= e2 ? 1 : 2) | 0x18);
     if (FREE_END) {
-      BV[b] = NEG;
+      BV[b] = (T)NEG;
       BR[b] = 0;
     }
   }
@@ -167,35 +194,34 @@ __global__ void fill_kernel(const uint8_t* __restrict__ q,
       const int si = js - 1;
       const int sj = (si >= 0 && si < Smax) ? sl[si] : 255;
       const int sub = sj == qc ? match : -mism;
-      const int dg = (js >= 1 && Hd > THR) ? Hd + sub : NEG;
-      const int f1e = F1u - ge1, f2e = F2u - ge2;
-      const int f1n = max(Hu - (go1 + ge1), f1e);
-      const int f2n = max(Hu - (go2 + ge2), f2e);
+      const int dg = (js >= 1 && Hd > THR) ? (T)(Hd + sub) : NEG;
+      const int f1e = (T)(F1u - ge1), f2e = (T)(F2u - ge2);
+      const int f1n = max((int)(T)(Hu - (go1 + ge1)), f1e);
+      const int f2n = max((int)(T)(Hu - (go2 + ge2)), f2e);
       const int hpre = max(dg, max(f1n, f2n));
-      const int base1 = hpre > THR ? hpre + js * ge1 : NEG;
-      const int base2 = hpre > THR ? hpre + js * ge2 : NEG;
+      const int base1 = hpre > THR ? (T)(hpre + b * ge1) : NEG;
+      const int base2 = hpre > THR ? (T)(hpre + b * ge2) : NEG;
       tmax1 = max(tmax1, base1);
       tmax2 = max(tmax2, base2);
-      H[b] = hpre;
-      DG[b] = dg;
-      F1[b] = f1n;
-      F2[b] = f2n;
+      H[b] = (T)hpre;
+      DG[b] = (T)dg;
+      F1[b] = (T)f1n;
+      F2[b] = (T)f2n;
       FL[b] = (uint8_t)(((f1n == f1e) << 5) | ((f2n == f2e) << 6));
     }
 
     // B: prefix max of the bases across the band
     int c1, c2;
-    block_excl_max2(tmax1, tmax2, c1, c2, ws1, ws2);
+    block_excl_max2(tmax1, tmax2, c1, c2, ws1, ws2, NEG);
 
     // C: E1/E2 from the running prefix max (shifted by one slot)
     for (int b = b0; b < b1; ++b) {
-      const int js = DIAG ? i - W2 + b : b;
       const int hpre = H[b];
-      E1[b] = c1 > THR ? c1 - go1 - js * ge1 : NEG;
-      E2[b] = c2 > THR ? c2 - go2 - js * ge2 : NEG;
+      E1[b] = c1 > THR ? (T)((T)(c1 - go1) - b * ge1) : (T)NEG;
+      E2[b] = c2 > THR ? (T)((T)(c2 - go2) - b * ge2) : (T)NEG;
       if (hpre > THR) {
-        c1 = max(c1, hpre + js * ge1);
-        c2 = max(c2, hpre + js * ge2);
+        c1 = max(c1, (int)(T)(hpre + b * ge1));
+        c2 = max(c2, (int)(T)(hpre + b * ge2));
       }
     }
     __syncthreads();
@@ -205,8 +231,8 @@ __global__ void fill_kernel(const uint8_t* __restrict__ q,
     for (int b = b0; b < b1; ++b) {
       const int js = DIAG ? i - W2 + b : b;
       const int e1 = E1[b], e2 = E2[b];
-      const bool e1x = b == 0 || e1 == E1[b - 1] - ge1;
-      const bool e2x = b == 0 || e2 == E2[b - 1] - ge2;
+      const bool e1x = b == 0 || e1 == (T)(E1[b - 1] - ge1);
+      const bool e2x = b == 0 || e2 == (T)(E2[b - 1] - ge2);
       const int dg = DG[b];
       int hn = max(H[b], max(e1, e2));
       if (!(js >= 0 && js <= SL)) hn = NEG;
@@ -216,10 +242,10 @@ __global__ void fill_kernel(const uint8_t* __restrict__ q,
                       : hn == F1[b] ? 3
                                     : 4;
       drow[b] = (uint8_t)(src | (e1x << 3) | (e2x << 4) | FL[b]);
-      H[b] = hn;
+      H[b] = (T)hn;
       if (FREE_END && hn > BV[b]) {
-        BV[b] = hn;
-        BR[b] = i;
+        BV[b] = (T)hn;
+        BR[b] = (T)i;
       }
     }
     __syncthreads();
@@ -251,78 +277,96 @@ __global__ void fill_kernel(const uint8_t* __restrict__ q,
       ei = L;
       eb = SL - (DIAG ? L - W2 : 0);
       sc = H[min(max(eb, 0), W - 1)];
+      // short state: widen, masked values become the int32 sentinel
+      if (sizeof(T) == 2 && sc <= THR) sc = NEG32;
     }
     score[lane] = sc;
     end_i[lane] = ei;
     end_b[lane] = eb;
-    okv[lane] = (uint8_t)(eb >= 0 && eb < W && sc > THR);
+    okv[lane] = (uint8_t)(eb >= 0 && eb < W && sc > NEG32 / 2);
   }
 }
 
-template <bool DIAG, bool FE>
+template <typename T, bool DIAG, bool FE>
 static int launch(int B, int nt, size_t smem, const uint8_t* q,
                   const uint8_t* s, const int* qlen, const int* slen,
                   int Qmax, int Smax, int W, int match, int mism, int go1,
-                  int ge1, int go2, int ge2, int* scratch, uint8_t* dirs,
-                  int* score, int* end_i, int* end_b, uint8_t* ok,
-                  cudaStream_t st) {
+                  int ge1, int go2, int ge2, int neg, int thr,
+                  uint8_t* scratch, uint8_t* dirs, int* score, int* end_i,
+                  int* end_b, uint8_t* ok, cudaStream_t st) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fill_kernel<DIAG, FE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fill_kernel<T, DIAG, FE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fill_kernel<DIAG, FE><<<B, nt, smem, st>>>(
-      q, s, qlen, slen, Qmax, Smax, W, match, mism, go1, ge1, go2, ge2,
-      scratch, dirs, score, end_i, end_b, ok);
+  fill_kernel<T, DIAG, FE><<<B, nt, smem, st>>>(
+      q, s, qlen, slen, Qmax, Smax, W, match, mism, go1, ge1, go2, ge2, neg,
+      thr, scratch, dirs, score, end_i, end_b, ok);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int dispatch(int diag, int free_end, int B, int nt, size_t smem,
+                    const uint8_t* q, const uint8_t* s, const int* qlen,
+                    const int* slen, int Qmax, int Smax, int W, int match,
+                    int mism, int go1, int ge1, int go2, int ge2, int neg,
+                    int thr, uint8_t* scratch, uint8_t* dirs, int* score,
+                    int* end_i, int* end_b, uint8_t* ok, cudaStream_t st) {
+#define LESV_FILL_GO(D, F)                                                  \
+  return launch<T, D, F>(B, nt, smem, q, s, qlen, slen, Qmax, Smax, W,      \
+                         match, mism, go1, ge1, go2, ge2, neg, thr, scratch, \
+                         dirs, score, end_i, end_b, ok, st)
+  if (diag) {
+    if (free_end) LESV_FILL_GO(true, true);
+    LESV_FILL_GO(true, false);
+  }
+  if (free_end) LESV_FILL_GO(false, true);
+  LESV_FILL_GO(false, false);
+#undef LESV_FILL_GO
 }
 
 extern "C" {
 
-// Per-lane state size in 32-bit words (shared memory or global scratch).
-long long lesv_fill_state_words(int W, int free_end) {
-  return (long long)(free_end ? 8 : 6) * W + (W + 3) / 4;
+// Per-lane state size in bytes (shared memory or global scratch) for a
+// state element of esz bytes (4: int, 2: short).
+long long lesv_fill_state_bytes(int W, int free_end, int esz) {
+  return (long long)state_bytes(W, free_end, esz);
 }
 
-// scratch == NULL: row state in dynamic shared memory; otherwise a
-// (B, lesv_fill_state_words) int32 buffer in device memory.
+// i16 != 0 runs the short-state variant.  scratch == NULL: row state in
+// dynamic shared memory; otherwise a (B, lesv_fill_state_bytes) byte
+// buffer in device memory.
 int lesv_fill(const void* q, const void* s, const void* qlen,
               const void* slen, int B, int Qmax, int Smax, int W, int diag,
-              int free_end, int match, int mism, int go1, int ge1, int go2,
-              int ge2, void* scratch, void* dirs, void* score, void* end_i,
-              void* end_b, void* ok, void* stream) {
+              int free_end, int i16, int match, int mism, int go1, int ge1,
+              int go2, int ge2, void* scratch, void* dirs, void* score,
+              void* end_i, void* end_b, void* ok, void* stream) {
   if (B <= 0) return 0;
   const int nt = W >= 1024 ? 1024 : ((W + 31) / 32) * 32;
   const size_t smem =
-      scratch ? 0 : (size_t)lesv_fill_state_words(W, free_end) * 4;
+      scratch ? 0 : state_bytes(W, free_end, i16 ? 2 : 4);
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* qq = (const uint8_t*)q;
   const uint8_t* ss = (const uint8_t*)s;
   const int* ql = (const int*)qlen;
   const int* sl = (const int*)slen;
-  int* sc = (int*)scratch;
+  uint8_t* sc = (uint8_t*)scratch;
   uint8_t* d = (uint8_t*)dirs;
   int* o0 = (int*)score;
   int* o1 = (int*)end_i;
   int* o2 = (int*)end_b;
   uint8_t* o3 = (uint8_t*)ok;
-  if (diag) {
-    if (free_end)
-      return launch<true, true>(B, nt, smem, qq, ss, ql, sl, Qmax, Smax, W,
-                                match, mism, go1, ge1, go2, ge2, sc, d, o0,
-                                o1, o2, o3, st);
-    return launch<true, false>(B, nt, smem, qq, ss, ql, sl, Qmax, Smax, W,
-                               match, mism, go1, ge1, go2, ge2, sc, d, o0,
-                               o1, o2, o3, st);
+  if (i16) {
+    const int g1 = go1 + ge1 * (W + 1), g2 = go2 + ge2 * (W + 1);
+    const int thr = NEG16 + (g1 > g2 ? g1 : g2) + 16;
+    return dispatch<short>(diag, free_end, B, nt, smem, qq, ss, ql, sl, Qmax,
+                           Smax, W, match, mism, go1, ge1, go2, ge2, NEG16,
+                           thr, sc, d, o0, o1, o2, o3, st);
   }
-  if (free_end)
-    return launch<false, true>(B, nt, smem, qq, ss, ql, sl, Qmax, Smax, W,
-                               match, mism, go1, ge1, go2, ge2, sc, d, o0,
-                               o1, o2, o3, st);
-  return launch<false, false>(B, nt, smem, qq, ss, ql, sl, Qmax, Smax, W,
-                              match, mism, go1, ge1, go2, ge2, sc, d, o0,
-                              o1, o2, o3, st);
+  return dispatch<int>(diag, free_end, B, nt, smem, qq, ss, ql, sl, Qmax,
+                       Smax, W, match, mism, go1, ge1, go2, ge2, NEG32,
+                       NEG32 / 2, sc, d, o0, o1, o2, o3, st);
 }
 
 }  // extern "C"

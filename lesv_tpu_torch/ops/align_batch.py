@@ -2,9 +2,12 @@
 
 Counterpart of :mod:`lesv_tpu.ops.align_batch`.  Ragged (query, subject)
 pairs are snapped into power-of-two (Qmax, Smax, W, mode) buckets
-(lesv_tpu's ``_bucket_of`` with its CPU quantiser ``_next_pow2``: eager
-PyTorch has no compile cost to amortise), padded, and solved one chunk of ``_lanes_for`` lanes
-at a time by :func:`align_torch.banded_align_batch` on the given device.
+(``_bucket_of`` with the tight quantiser ``_next_pow2``: eager PyTorch has
+no compile cost to amortise), padded, and solved one chunk of
+``_lanes_for`` lanes at a time by :func:`align_torch.banded_align_batch`
+on the given device.  Each bucket's fill runs the int16 kernel when the
+gate :func:`align_torch.i16_ok` holds for its (Qmax, W) and the int32
+kernel otherwise; ``force_i16`` pins either.
 
 The tunnel cost model of the JAX package (``_host_route``,
 ``_chunk_prefers_host`` and their fitted rates) is not used: it was
@@ -13,26 +16,28 @@ reach 2^31 bytes (``Rq * W * Bs``) is solved on the host, and lanes that
 escape the band are retried on the host with a widening band.
 
 ``FILL_STATS`` counts the fills and DP cells that went to the host and
-to the device fill.
+to the device fill.  The host helpers (:func:`align_pairs_host`,
+:func:`global_align_pairs_host` and the band-widening numpy retry) are
+the JAX package's, on the port's native library.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
 
-from lesv_tpu.config import AlignConfig
-from lesv_tpu.ops.align_batch import (
-    _align_pairs_np,
-    _bucket_of,
-    _host_cost,
-    _next_pow2,
-    align_pairs_host,
+from lesv_tpu_torch import native
+from lesv_tpu_torch.config import AlignConfig
+from lesv_tpu_torch.ops.align_np import (
+    Alignment,
+    banded_global_align,
+    extension_align,
 )
-from lesv_tpu.ops.align_np import Alignment
-from lesv_tpu.utils import profiling
 from lesv_tpu_torch.ops.align_torch import banded_align_batch
+from lesv_tpu_torch.ops.cigar import trim_to_exact_match
+from lesv_tpu_torch.utils import profiling
 
 FILL_STATS = {"device_fills": 0, "device_cells": 0, "host_fills": 0,
               "host_cells": 0}
@@ -56,6 +61,38 @@ def _lanes_for(Q: int, W: int) -> int:
     if cells <= 1 << 24:
         return 8
     return 1
+
+
+def _next_pow2(x: int, lo: int = 64, hi: int = 1 << 17) -> int:
+    n = lo
+    while n < x:
+        n *= 2
+    return min(n, hi)
+
+
+def _seg_pad(lq: int, ls: int) -> int:
+    return max(32, int(0.12 * min(lq, ls)))
+
+
+def _bucket_of(lq: int, ls: int, q2) -> tuple[int, int, int, str]:
+    """(Qmax, Smax, W, mode) bucket for a global segment.
+
+    diag mode requires the end diagonal |ls-lq| (plus drift pad) to fit in
+    half the band; otherwise the rectangular full-width mode is used (it is
+    cheap exactly when the subject is short).
+    """
+    Q = q2(max(lq, 1))
+    pad = _seg_pad(lq, ls)
+    need = 2 * (abs(ls - lq) + 2 * pad)
+    S = q2(ls + 1)
+    if need >= ls + 1:
+        return Q, S, S, "full"
+    W = _next_pow2(need, lo=64)
+    if W >= S:
+        return Q, S, S, "full"
+    # diag: |ls-lq| <= W/2 so the subject fits in Q + W columns — S is
+    # not part of the bucket key
+    return Q, Q + W, W, "diag"
 
 
 def _ext_bucket_of(lq: int, ls: int) -> tuple[int, int, int, str]:
@@ -84,6 +121,7 @@ def align_pairs(
     cfg: AlignConfig | None = None,
     free_end: bool = False,
     device="cpu",
+    force_i16: bool | None = None,
 ) -> list[Alignment | None]:
     """Align many (q, s) pairs on ``device``; global by default, extension
     when ``free_end``.  Returns Alignments (None on failure)."""
@@ -124,7 +162,8 @@ def align_pairs(
                 slen[j] = len(s)
             with profiling.trace(f"align/fill/{mode}/W{W}"):
                 out = banded_align_batch(qb, sb, qlen, slen, W, mode, cfg,
-                                         free_end=free_end, device=device)
+                                         free_end=free_end, device=device,
+                                         force_i16=force_i16)
             FILL_STATS["device_fills"] += B
             FILL_STATS["device_cells"] += int(qlen.sum()) * W
             for j, i in enumerate(chunk):
@@ -150,3 +189,190 @@ def align_pairs(
         FILL_STATS["host_cells"] += _host_cost(len(pairs[i][0]),
                                                len(pairs[i][1]), free_end)
     return results
+
+
+# global segments this small solve as full rectangles either way; the
+# host micro-DP is ~us per pair while a device lane costs dispatch +
+# readback latency.  Both paths are bit-identical (full-DP case).
+TINY_SEG = 16
+
+
+def global_align_pairs_host(
+    pairs: Sequence[tuple[np.ndarray, np.ndarray]],
+    cfg: AlignConfig | None = None,
+) -> list[Alignment | None]:
+    """Reference-semantics global NW of whole (q, s) spans on the host.
+
+    `align_and_refine_subseq_with_ksw` with max_dist=-1 runs ksw2 NW at
+    band = max_subseq_size (`app/necat2sv/align_subseqs.c:193-262`) — no
+    seeding/chaining — so a 1.5kb deletion inside the span is bridged by
+    the DP itself.  This is the fallback for spans where chain-anchored
+    alignment cannot bridge the SV (a spurious chance-k-mer chain tail can
+    overlap the far-side chain and block the SV-preserving join; see
+    `find_sv_reads.c:341-430` s_chain_dual_m4s).  The band starts at
+    2x the length imbalance (the path's diagonal drift bound) and widens
+    on band escape; results are trimmed to the exact-match-end invariant.
+    """
+    cfg = cfg or AlignConfig()
+
+    def one(pair):
+        q, s = pair
+        lq, ls = len(q), len(s)
+        if lq == 0 or ls == 0:
+            return None
+        W = min(ls + 1, _next_pow2(2 * abs(ls - lq) + 1024, lo=256,
+                                   hi=1 << 17))
+        a: Alignment | None = None
+        while True:
+            mode_diag = W < ls + 1
+            r = native.banded_align_one(
+                q, s, int(W), mode_diag, cfg.match, cfg.mismatch,
+                cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2,
+                cfg.gap_ext2, False)
+            if r is not None:
+                ops, score, qe, se = r
+                a = Alignment(0, qe, 0, se, ops, score=score)
+            if a is not None or W >= ls + 1:
+                break
+            W = min(W * 2, ls + 1)
+        if a is not None:
+            a = trim_to_exact_match(a, q, s, cfg.end_match_len)
+        return a
+
+    if len(pairs) > 1:
+        # ctypes releases the GIL: spread the whole-span NWs over cores
+        import concurrent.futures as _fut
+
+        with _fut.ThreadPoolExecutor(
+                max_workers=_n_host_workers()) as pool:
+            return list(pool.map(one, pairs))
+    return [one(p) for p in pairs]
+
+
+def align_pairs_host(
+    pairs: Sequence[tuple[np.ndarray, np.ndarray]],
+    cfg: AlignConfig | None = None,
+    free_end: bool = False,
+) -> list[Alignment | None]:
+    """Host-only path (native C++ fill) — used for tiny segments where
+    device latency dominates."""
+    return _align_pairs_native(pairs, cfg or AlignConfig(), free_end)
+
+
+def _init_band(lq: int, ls: int, free_end: bool) -> int:
+    if free_end:
+        return min(max(128, lq // 2), ls + 1)
+    pad = _seg_pad(lq, ls)
+    need = 2 * (abs(ls - lq) + 2 * pad)
+    return need if need < ls + 1 else ls + 1
+
+
+def _align_pairs_native(pairs, cfg, free_end):
+    """Native C++ fill + traceback (host path), one batched ctypes call
+    per block — per-call marshaling overhead would otherwise dominate
+    the tiny inter-anchor segment fills."""
+    out: list[Alignment | None] = [None] * len(pairs)
+    live = [i for i, (q, s) in enumerate(pairs)
+            if len(q) > 0 and len(s) > 0]
+    if not live:
+        return out
+    lp = [pairs[i] for i in live]
+    W0 = np.asarray([_init_band(len(q), len(s), free_end)
+                     for q, s in lp], np.int64)
+    fe = np.full(len(lp), 1 if free_end else 0, np.uint8)
+
+    def run_block(blk):
+        return native.banded_align_batch_host(
+            [lp[j] for j in blk], W0[blk], fe[blk], cfg.match,
+            cfg.mismatch, cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2,
+            cfg.gap_ext2)
+
+    total_cells = int(sum(len(q) * w for (q, _), w in zip(lp, W0)))
+    nw = _n_host_workers()
+    if len(lp) > 1 and nw > 1 and total_cells > 50_000_000:
+        # heavy batches (e.g. remap's band-wide global fills) spread
+        # over the host cores; cost-balanced contiguous blocks
+        import concurrent.futures as _fut
+
+        costs = np.asarray([len(q) * w for (q, _), w in zip(lp, W0)],
+                           np.float64)
+        order = np.argsort(-costs, kind="stable")
+        blocks: list[list[int]] = [[] for _ in range(2 * nw)]
+        loads = np.zeros(2 * nw)
+        for j in order:                 # LPT assignment
+            t = int(np.argmin(loads))
+            blocks[t].append(int(j))
+            loads[t] += costs[j]
+        blocks = [b for b in blocks if b]
+        with _fut.ThreadPoolExecutor(max_workers=nw) as pool:
+            results = list(pool.map(run_block, blocks))
+        for blk, r in zip(blocks, results):
+            ops_flat, ops_off, nops, score, qe, se, okv = r
+            for jj, j in enumerate(blk):
+                if not okv[jj]:
+                    continue
+                ops = ops_flat[ops_off[jj] : ops_off[jj]
+                               + nops[jj]].copy()
+                out[live[j]] = Alignment(0, int(qe[jj]), 0, int(se[jj]),
+                                         ops, score=int(score[jj]))
+        return out
+
+    r = run_block(list(range(len(lp))))
+    ops_flat, ops_off, nops, score, qe, se, okv = r
+    for j, i in enumerate(live):
+        if not okv[j]:
+            continue
+        ops = ops_flat[ops_off[j] : ops_off[j] + nops[j]].copy()
+        out[i] = Alignment(0, int(qe[j]), 0, int(se[j]), ops,
+                           score=int(score[j]))
+    return out
+
+
+def _align_pairs_np(pairs, cfg, free_end):
+    out: list[Alignment | None] = []
+    for q, s in pairs:
+        if len(q) == 0 or len(s) == 0:
+            out.append(None)
+            continue
+        if free_end:
+            band = max(256, int(0.25 * len(q)))
+            out.append(extension_align(q, s, band, cfg=cfg))
+        else:
+            band = abs(len(s) - len(q)) + 2 * _seg_pad(len(q), len(s))
+            a = None
+            while a is None:
+                a = banded_global_align(q, s, band, cfg=cfg)
+                if band >= len(s) + 1:
+                    break
+                band *= 2
+            out.append(a)
+    return out
+
+
+def _host_cost(lq: int, ls: int, free_end: bool) -> int:
+    """Estimated native host fill cost (cells) for one pair — the band
+    width the host path (`_align_pairs_native`) would actually use."""
+    if free_end:
+        W = min(max(128, lq // 2), ls + 1)
+    else:
+        pad = _seg_pad(lq, ls)
+        need = 2 * (abs(ls - lq) + 2 * pad)
+        W = need if need < ls + 1 else ls + 1
+    return lq * W
+
+
+_CFG_THREADS = 0
+
+
+def set_num_threads(n: int) -> None:
+    """Apply -num_threads to the host pools (reference `-num_threads`
+    worker-thread count; 0 = auto).  Called by the driver from
+    LesvConfig.num_threads."""
+    global _CFG_THREADS
+    _CFG_THREADS = int(n or 0)
+
+
+def _n_host_workers() -> int:
+    if _CFG_THREADS > 0:
+        return _CFG_THREADS
+    return max(1, min(8, os.cpu_count() or 1))

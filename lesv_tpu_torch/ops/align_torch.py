@@ -6,7 +6,10 @@ a plain PyTorch version and a hand-written CUDA kernel:
 
 * the fill (:func:`banded_fill`): plain :func:`banded_align_kernel`, the
   recurrences of ``align_jax.banded_align_kernel`` as a row loop of tensor
-  ops; kernel ``csrc/fill.cu``;
+  ops; kernel ``csrc/fill.cu``.  Both come in two state types: int32, and
+  int16 (``i16=True``, the ``i16`` variant of
+  ``align_pallas._fill_kernel``), which :func:`banded_fill` picks per
+  bucket when the gate :func:`i16_ok` proves it exact;
 * the traceback (:func:`traceback_device`): plain :func:`traceback_plain`;
   kernel ``csrc/traceback.cu``.
 
@@ -21,14 +24,76 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lesv_tpu.config import AlignConfig
+from lesv_tpu_torch.config import AlignConfig
 from lesv_tpu_torch import _ext
 
 NEG = -(2**28)
+NEG16 = -16384          # int16 sentinel (see i16_ok for the bound proof)
 OP_M, OP_I, OP_D, OP_PAD = 0, 1, 2, 255
 # row state above this many bytes per lane goes to a global scratch
 # buffer instead of shared memory
 SMEM_CAP = 200 * 1024
+
+
+def i16_ok(Qmax: int, W: int, cfg: AlignConfig) -> bool:
+    """True when the int16 fill is bit-identical to the int32 fill on
+    score, end cell, ok and the decoded op path
+    (``align_pallas._i16_ok``).
+
+    The DP is a max over paths, so every valid in-band cell has
+    H >= -(mism*Qmax + gpath) (all-mismatch diagonal plus one gap run of
+    length <= Qmax + W at the cheaper of the two affine costs); E/F
+    registers sit at most gmax_reg = max(go + ge*(W+1)) below an H value
+    on any traceback-relevant chain.  Three conditions make int16 exact:
+
+    1. THR separation: every traceback-relevant register value clears
+       THR = NEG16 + gmax_reg + 16, so the mask tests agree with int32's
+       NEG//2 tests wherever the traceback can look.
+    2. No wraparound: masked F registers drift down ge per row from
+       NEG16 (or from a real value that lost its H source), bounded by
+       hmin + go + Qmax*ge + gmax_reg; that must stay above int16 min.
+    3. Positive side: match*Qmax + ge*(W+1) within range.
+
+    Cells the traceback cannot visit may hold different direction bytes
+    than the int32 fill (deep drifted values clamp at THR differently)."""
+    match, mism = cfg.match, cfg.mismatch
+    go1, ge1, go2, ge2 = (cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2,
+                          cfg.gap_ext2)
+    ge = max(ge1, ge2)
+    gmax_reg = max(go1 + ge1 * (W + 1), go2 + ge2 * (W + 1))
+    L = Qmax + W
+    gpath = min(go1 + ge1 * L, go2 + ge2 * L)
+    hmin = mism * Qmax + gpath
+    real_reg_min = hmin + gmax_reg + max(go1 + ge1, go2 + ge2)
+    if real_reg_min >= 16384 - gmax_reg - 64:       # THR separation
+        return False
+    if 16384 + go1 + go2 + Qmax * ge + gmax_reg + 128 >= 32768:
+        return False                                # sentinel drift wrap
+    if hmin + go1 + go2 + Qmax * ge + gmax_reg + 128 >= 32768:
+        return False                                # real drift wrap
+    if match * Qmax + ge * (W + 1) >= 16000:        # positive overflow
+        return False
+    return True
+
+
+def i16_thr(W: int, cfg: AlignConfig) -> int:
+    """Mask threshold of the int16 fill: NEG16 plus the deepest affine
+    gap a band of W slots can hold, plus slack."""
+    gmax = max(cfg.gap_open1 + cfg.gap_ext1 * (W + 1),
+               cfg.gap_open2 + cfg.gap_ext2 * (W + 1))
+    return NEG16 + gmax + 16
+
+
+def _use_i16(Qmax: int, W: int, cfg: AlignConfig,
+             force_i16: bool | None) -> bool:
+    """The state type of one fill: the gate decides unless ``force_i16``
+    pins it; forcing int16 where the gate fails raises (int16 arithmetic
+    could wrap there)."""
+    ok = i16_ok(Qmax, W, cfg)
+    if force_i16 and not ok:
+        raise ValueError(f"int16 fill forced on Qmax={Qmax}, W={W}: the "
+                         "i16_ok gate does not hold for these costs")
+    return ok if force_i16 is None else force_i16
 
 
 def guide_of(mode: str, Qmax: int, W: int) -> np.ndarray:
@@ -41,12 +106,21 @@ def guide_of(mode: str, Qmax: int, W: int) -> np.ndarray:
 
 def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
                         qlen: torch.Tensor, slen: torch.Tensor, W: int,
-                        mode: str, cfg: AlignConfig, free_end: bool = False):
+                        mode: str, cfg: AlignConfig, free_end: bool = False,
+                        i16: bool = False):
     """Plain fill.  q (B, Qmax) u8, s (B, Smax) u8, qlen/slen (B,) i32.
 
+    ``i16`` keeps the DP state in ``torch.int16`` with the sentinel NEG16
+    and the mask threshold :func:`i16_thr`, the arithmetic of the int16
+    kernel; the caller checks :func:`i16_ok`.  The affine-gap scan bases
+    are then rebased by the row constant (band slot instead of subject
+    column; it cancels in E), which keeps them in range.
+
     Returns (dirs (B, Qmax+1, W) u8, score, end_i, end_b (B,) i32,
-    ok (B,) bool)."""
+    ok (B,) bool); scores are int32 with the int32 sentinel either way."""
     assert mode in ("diag", "full")
+    NEG_, THR = (NEG16, i16_thr(W, cfg)) if i16 else (NEG, NEG // 2)
+    dt = torch.int16 if i16 else torch.int32
     dev = q.device
     B, Qmax = q.shape
     Smax = s.shape[1]
@@ -60,18 +134,20 @@ def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
     slen = slen.to(i32)
     sl = slen[:, None]
     br = torch.arange(W, dtype=i32, device=dev)[None, :]
-    negcol = torch.full((B, 1), NEG, dtype=i32, device=dev)
-    neg = torch.tensor(NEG, dtype=i32, device=dev)
+    negcol = torch.full((B, 1), NEG_, dtype=dt, device=dev)
+    neg = torch.tensor(NEG_, dtype=dt, device=dev)
 
+    # row 0 in int32 (every value fits the state type), cut at the end
+    neg0 = torch.tensor(NEG_, dtype=i32, device=dev)
     js0 = (br - W2) if diag_mode else br
     in0 = (js0 >= 0) & (js0 <= sl)
-    E1 = torch.where(js0 > 0, -go1 - js0 * ge1, neg).expand(B, W)
-    E2 = torch.where(js0 > 0, -go2 - js0 * ge2, neg).expand(B, W)
+    E1 = torch.where(js0 > 0, -go1 - js0 * ge1, neg0).expand(B, W)
+    E2 = torch.where(js0 > 0, -go2 - js0 * ge2, neg0).expand(B, W)
     H = torch.where(js0 == 0, torch.zeros_like(E1), torch.maximum(E1, E2))
-    H = torch.where(in0, H, neg)
-    E1 = torch.where(in0, E1, neg)
-    E2 = torch.where(in0, E2, neg)
-    F1 = torch.full((B, W), NEG, dtype=i32, device=dev)
+    H = torch.where(in0, H, neg0).to(dt)
+    E1 = torch.where(in0, E1, neg0).to(dt)
+    E2 = torch.where(in0, E2, neg0).to(dt)
+    F1 = torch.full((B, W), NEG_, dtype=dt, device=dev)
     F2 = F1.clone()
     dirs = torch.zeros((B, Qmax + 1, W), dtype=torch.uint8, device=dev)
     dirs[:, 0] = (torch.where(E1 >= E2, 1, 2) | 0x18).to(torch.uint8)
@@ -93,6 +169,8 @@ def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
     for i in range(1, min(rmax, Qmax) + 1):
         js = (br + (i - W2)) if diag_mode else br
         inb = (js >= 0) & (js <= sl)
+        # scan-base offset: the subject column, or (int16) the band slot
+        jg = (br if i16 else js).to(dt)
         if diag_mode:
             Hd = H
             Hu = torch.cat([H[:, 1:], negcol], 1)
@@ -103,22 +181,22 @@ def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
             Hd = torch.cat([negcol, H[:, :-1]], 1)
             Hu, F1u, F2u = H, F1, F2
             sj = s_pad[:, 0:W]
-        sub = (sj == qi32[:, i - 1 : i]).to(i32) * (match + mism) - mism
-        dg = torch.where((js >= 1) & (Hd > NEG // 2), Hd + sub, neg)
+        sub = (sj == qi32[:, i - 1 : i]).to(dt) * (match + mism) - mism
+        dg = torch.where((js >= 1) & (Hd > THR), Hd + sub, neg)
         F1e = F1u - ge1
         F2e = F2u - ge2
         F1n = torch.maximum(Hu - (go1 + ge1), F1e)
         F2n = torch.maximum(Hu - (go2 + ge2), F2e)
         Hpre = torch.maximum(dg, torch.maximum(F1n, F2n))
-        ok_pre = Hpre > NEG // 2
-        run1 = torch.cummax(torch.where(ok_pre, Hpre + js * ge1, neg),
+        ok_pre = Hpre > THR
+        run1 = torch.cummax(torch.where(ok_pre, Hpre + jg * ge1, neg),
                             1).values
-        run2 = torch.cummax(torch.where(ok_pre, Hpre + js * ge2, neg),
+        run2 = torch.cummax(torch.where(ok_pre, Hpre + jg * ge2, neg),
                             1).values
         E1n = torch.cat([negcol, run1[:, :-1]], 1)
-        E1n = torch.where(E1n > NEG // 2, E1n - go1 - js * ge1, neg)
+        E1n = torch.where(E1n > THR, E1n - go1 - jg * ge1, neg)
         E2n = torch.cat([negcol, run2[:, :-1]], 1)
-        E2n = torch.where(E2n > NEG // 2, E2n - go2 - js * ge2, neg)
+        E2n = torch.where(E2n > THR, E2n - go2 - jg * ge2, neg)
         E1ext = torch.cat([torch.ones_like(negcol, dtype=torch.bool),
                            E1n[:, 1:] == E1n[:, :-1] - ge1], 1)
         E2ext = torch.cat([torch.ones_like(negcol, dtype=torch.bool),
@@ -150,21 +228,35 @@ def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
             best_b = torch.where(upd, bm, best_b)
 
     if free_end:
-        end_i, end_b, score = best_i, best_b, best
+        # best starts at the origin's 0 and only grows: never a sentinel
+        end_i, end_b, score = best_i, best_b, best.to(i32)
     else:
         end_i = qlen
         gq = (qlen - W2) if diag_mode else torch.zeros_like(qlen)
         end_b = slen - gq
         score = torch.gather(H, 1, end_b.clamp(0, W - 1)[:, None].long())[:, 0]
+        score = score.to(i32)
+        if i16:
+            # widen: masked values become the int32 sentinel
+            score = torch.where(score > THR, score,
+                                torch.tensor(NEG, dtype=i32, device=dev))
     ok = (end_b >= 0) & (end_b < W) & (score > NEG // 2)
     return dirs, score, end_i, end_b, ok
 
 
+def fill_state_bytes(W: int, free_end: bool, i16: bool) -> int:
+    """Row state of one lane in bytes: 6 (8 with free_end) arrays of W
+    values of the state type and W flag bytes, rounded up to 4."""
+    return ((8 if free_end else 6) * W * (2 if i16 else 4) + W + 3) // 4 * 4
+
+
 def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
-              free_end: bool = False):
-    """The fill kernel (``csrc/fill.cu``) on CUDA tensors; same outputs as
-    :func:`banded_align_kernel` except that dirs rows past each lane's
-    query length are left unwritten."""
+              free_end: bool = False, i16: bool = False):
+    """The fill kernel (``csrc/fill.cu``) on CUDA tensors, with int32 or
+    (``i16``) int16 state; same outputs as :func:`banded_align_kernel`
+    with the same ``i16``, except that dirs rows past each lane's query
+    length are left unwritten.  ``i16`` where :func:`i16_ok` fails
+    raises."""
     B, Qmax = q.shape
     Smax = s.shape[1]
     for t, dt in ((q, torch.uint8), (s, torch.uint8), (qlen, torch.int32),
@@ -174,39 +266,44 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
                              "q/s uint8 and qlen/slen int32")
     if mode not in ("diag", "full") or W < 1:
         raise ValueError(f"fill_cuda: bad band mode {mode!r} / W={W}")
+    i16 = _use_i16(Qmax, W, cfg, i16)
     dev = q.device
     dirs = torch.empty((B, Qmax + 1, W), dtype=torch.uint8, device=dev)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     end_i = torch.empty_like(score)
     end_b = torch.empty_like(score)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    words = (8 if free_end else 6) * W + (W + 3) // 4
+    state = fill_state_bytes(W, free_end, i16)
     scratch = None
-    if words * 4 > SMEM_CAP:
-        scratch = torch.empty(B * words, dtype=torch.int32, device=dev)
+    if state > SMEM_CAP:
+        scratch = torch.empty(B * state, dtype=torch.uint8, device=dev)
     P, I = _ext.P, _ext.I
     fn = _ext.function("fill", "lesv_fill",
-                       [P, P, P, P] + [I] * 12 + [P] * 7)
+                       [P, P, P, P] + [I] * 13 + [P] * 7)
     err = fn(q.data_ptr(), s.data_ptr(), qlen.data_ptr(), slen.data_ptr(),
-             B, Qmax, Smax, W, int(mode == "diag"), int(free_end),
+             B, Qmax, Smax, W, int(mode == "diag"), int(free_end), int(i16),
              cfg.match, cfg.mismatch, cfg.gap_open1, cfg.gap_ext1,
              cfg.gap_open2, cfg.gap_ext2,
              scratch.data_ptr() if scratch is not None else None,
              dirs.data_ptr(), score.data_ptr(), end_i.data_ptr(),
              end_b.data_ptr(), ok.data_ptr(), _ext.stream_of(q))
     _ext.check(err, "lesv_fill")
-    _ext.LAUNCHES["fill"] += 1
+    _ext.LAUNCHES["fill_i16" if i16 else "fill"] += 1
     return dirs, score, end_i, end_b, ok.bool()
 
 
 def banded_fill(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
-                free_end: bool = False):
+                free_end: bool = False, force_i16: bool | None = None):
     """Fill on the device of ``q``: the plain version on the CPU, the
-    CUDA kernel on a GPU."""
+    CUDA kernel on a GPU.  The state type is int16 where :func:`i16_ok`
+    holds for this (Qmax, W) and int32 otherwise; ``force_i16`` pins
+    either, and raises ``ValueError`` for int16 outside the gate."""
+    i16 = _use_i16(q.shape[1], W, cfg, force_i16)
     if q.device.type == "cpu":
-        return banded_align_kernel(q, s, qlen, slen, W, mode, cfg, free_end)
+        return banded_align_kernel(q, s, qlen, slen, W, mode, cfg, free_end,
+                                   i16=i16)
     if q.device.type == "cuda":
-        return fill_cuda(q, s, qlen, slen, W, mode, cfg, free_end)
+        return fill_cuda(q, s, qlen, slen, W, mode, cfg, free_end, i16=i16)
     raise ValueError(f"banded_fill: unsupported device {q.device}")
 
 
@@ -311,7 +408,8 @@ def traceback_device(dirs, end_i, end_b, ok, W: int, mode: str, T: int):
 
 def banded_align_dispatch(q, s, qlen, slen, W: int, mode: str,
                           cfg: AlignConfig | None = None,
-                          free_end: bool = False, device="cpu"):
+                          free_end: bool = False, device="cpu",
+                          force_i16: bool | None = None):
     """Upload a padded batch, run fill + traceback on ``device``; returns
     a pending handle for :func:`banded_align_finish` (CUDA work is queued,
     not waited for)."""
@@ -331,7 +429,7 @@ def banded_align_dispatch(q, s, qlen, slen, W: int, mode: str,
     qt, st = put(q, np.uint8), put(s, np.uint8)
     qlt, slt = put(qlen, np.int32), put(slen, np.int32)
     dirs, score, end_i, end_b, ok = banded_fill(qt, st, qlt, slt, W, mode,
-                                                cfg, free_end)
+                                                cfg, free_end, force_i16)
     T = dirs.shape[1] + W + 2
     ops, nops, reached = traceback_device(dirs, end_i, end_b, ok, W, mode, T)
     return dict(ops=ops, nops=nops, reached=reached, score=score,
@@ -379,7 +477,9 @@ def banded_align_finish(pend: dict):
 
 def banded_align_batch(q, s, qlen, slen, W: int, mode: str,
                        cfg: AlignConfig | None = None,
-                       free_end: bool = False, device="cpu"):
+                       free_end: bool = False, device="cpu",
+                       force_i16: bool | None = None):
     """numpy in, numpy out: fill and traceback on ``device``."""
     return banded_align_finish(banded_align_dispatch(
-        q, s, qlen, slen, W, mode, cfg, free_end, device=device))
+        q, s, qlen, slen, W, mode, cfg, free_end, device=device,
+        force_i16=force_i16))

@@ -5,20 +5,49 @@ task is stitched on the host by ``native.stitch_core`` (sanitize, M/D/I
 emission, tiny-gap micro-DP); every larger inter-anchor segment, then
 every end-extension block, goes through the port's :func:`align_pairs`
 on the given device.  Each result is trimmed back to the 8bp
-exact-match invariant by the JAX package's host ``_stitch_and_trim``.
+exact-match invariant by ``_stitch_and_trim``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from lesv_tpu import native as _nat
-from lesv_tpu.config import AlignConfig
-from lesv_tpu.ops.align_batch import TINY_SEG
-from lesv_tpu.ops.align_np import Alignment
-from lesv_tpu.ops.anchored import _stitch_and_trim
-from lesv_tpu.utils import profiling
-from lesv_tpu_torch.ops.align_batch import align_pairs
+from lesv_tpu_torch import native as _nat
+from lesv_tpu_torch.config import AlignConfig
+from lesv_tpu_torch.ops.align_batch import TINY_SEG, align_pairs
+from lesv_tpu_torch.ops.align_np import Alignment
+from lesv_tpu_torch.ops.cigar import trim_to_exact_match
+from lesv_tpu_torch.utils import profiling
+
+
+def sanitize_anchors(anchors: np.ndarray, k: int) -> np.ndarray:
+    """Turn chain anchors into non-overlapping exact runs (qoff, soff, len).
+
+    ``anchors`` is (n, 2) k-mer starts (each of length ``k``) or (n, 3)
+    variable-length runs (MEMs from :func:`ops.pairseed.mem_anchors`).
+    Same-diagonal overlapping/adjacent anchors merge into one maximal run;
+    an anchor overlapping the previous run in either coordinate on a
+    different diagonal is dropped (the banded DP resolves the region).
+    """
+    a = np.asarray(anchors, np.int64)
+    if a.size == 0:
+        return np.empty((0, 3), np.int64)
+    if a.shape[1] == 2:
+        a = np.concatenate([a, np.full((len(a), 1), k, np.int64)], axis=1)
+    out: list[list[int]] = []
+    for qo, so, ln in a:
+        if not out:
+            out.append([qo, so, ln])
+            continue
+        pq, ps, pl = out[-1]
+        if qo - pq == so - ps:  # same diagonal
+            if qo <= pq + pl:   # overlap/adjacent: extend run
+                out[-1][2] = max(pl, qo + ln - pq)
+                continue
+        if qo < pq + pl or so < ps + pl:  # conflicting overlap: drop
+            continue
+        out.append([qo, so, ln])
+    return np.asarray(out, np.int64)
 
 
 def anchored_align_many(
@@ -31,9 +60,6 @@ def anchored_align_many(
     segments (and then all end-extension blocks) across tasks into
     bucketed fills on ``device``."""
     cfg = cfg or AlignConfig()
-    if not _nat.available():
-        raise RuntimeError("anchored_align_many needs the native host "
-                           "library (lesv_tpu/native, built with make)")
     n = len(tasks)
     stitched: list[list | None] = []
     seg_pairs: list[tuple[np.ndarray, np.ndarray]] = []
@@ -140,3 +166,52 @@ def _extend_ends(tasks, cores, lefts, rights, cfg, device):
                 if ext.qe >= len(qb_) - 8 and len(qb_) == block:
                     next_active.append(ti)
             active = next_active
+
+
+def _stitch_and_trim(tasks, cores, lefts, rights, extend, cfg):
+    n = len(tasks)
+    out: list[Alignment | None] = []
+    for ti in range(n):
+        core = cores[ti]
+        if core is None:
+            out.append(None)
+            continue
+        q, s, _, _ = tasks[ti]
+        parts = []
+        qb, qe, sb, se = core.qb, core.qe, core.sb, core.se
+        score = core.score
+        left, right = lefts[ti], rights[ti]
+        if extend and len(left.ops):
+            parts.append(left.ops[::-1])
+            qb -= left.qe
+            sb -= left.se
+            score += left.score
+        parts.append(core.ops)
+        if extend and len(right.ops):
+            parts.append(right.ops)
+            qe += right.qe
+            se += right.se
+            score += right.score
+        aln = Alignment(qb, qe, sb, se, np.concatenate(parts), score=score)
+        out.append(trim_to_exact_match(aln, q, s, cfg.end_match_len))
+    return out
+
+
+def anchored_extend(
+    q: np.ndarray,
+    s: np.ndarray,
+    anchors: np.ndarray,
+    k: int,
+    cfg: AlignConfig | None = None,
+    extend: bool = True,
+    *,
+    device,
+) -> Alignment | None:
+    """Full pairwise alignment: stitch anchors, extend to both ends, trim.
+
+    ``s`` may be a window of a larger subject; anchors are in the
+    coordinates of ``q``/``s`` as given.  The result is trimmed so it begins
+    and ends with an ``end_match_len`` exact match.
+    """
+    return anchored_align_many([(q, s, anchors, k)], cfg, extend,
+                               device=device)[0]

@@ -13,10 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lesv_tpu.config import ChainConfig
-from lesv_tpu.ops.chain import Chain, _is_contained, join_adjacent_chains
-from lesv_tpu.utils import profiling
-from lesv_tpu_torch import _ext
+from lesv_tpu_torch import _ext, native
+from lesv_tpu_torch.config import ChainConfig
+from lesv_tpu_torch.ops.chain import (
+    Chain,
+    _is_contained,
+    join_adjacent_chains,
+)
+from lesv_tpu_torch.utils import profiling
 
 NEG = -(2**30)
 QOFF_INVALID = 0x7FFFFFFF
@@ -147,22 +151,16 @@ def extract_chains_from_fp(
     greedy best-first claiming (``native.chain_extract``), then
     containment dedup and chain join.  The native path of
     ``lesv_tpu.ops.chain_jax.extract_chains_from_fp``."""
-    from lesv_tpu import native
-
     cfg = cfg or ChainConfig()
     n = int(valid.sum())
     if n == 0:
         return []
     # native claims with full capacity; the max-chains cap applies AFTER
     # containment dedup (extract_chains_np parity)
-    r = native.chain_extract(np.asarray(f[:n], np.int64),
-                             np.asarray(p[:n], np.int64),
-                             np.asarray(v[:n], np.int64),
-                             cfg.min_chain_score, cfg.min_seed_cnt, n)
-    if r is None:
-        raise RuntimeError("extract_chains_from_fp needs the native host "
-                           "library (lesv_tpu/native, built with make)")
-    paths, bounds, scores, nc = r
+    paths, bounds, scores, nc = native.chain_extract(
+        np.asarray(f[:n], np.int64), np.asarray(p[:n], np.int64),
+        np.asarray(v[:n], np.int64), cfg.min_chain_score,
+        cfg.min_seed_cnt, n)
     chains: list[Chain] = []
     for c in range(nc):
         if len(chains) >= cfg.max_chains_per_context:

@@ -15,7 +15,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lesv_tpu.pipeline.batch_align import _pad_pow2_dim
 from lesv_tpu_torch.ops.seeding_torch import (
     QOFF_INVALID,
     SOFF_INVALID,
@@ -23,6 +22,13 @@ from lesv_tpu_torch.ops.seeding_torch import (
 )
 
 _BIG = 1 << 62      # sorts after every 2k-bit hash
+
+
+def _pad_pow2_dim(n: int, lo: int = 256) -> int:
+    p = lo
+    while p < n:
+        p *= 2
+    return p
 
 
 def pack_codes(codes: np.ndarray):

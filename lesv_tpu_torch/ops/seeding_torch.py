@@ -16,9 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lesv_tpu.config import SeedingConfig
-from lesv_tpu.index.kmer_index import KmerIndex
-from lesv_tpu.io.fasta import revcomp
+from lesv_tpu_torch.config import SeedingConfig
+from lesv_tpu_torch.index.kmer_index import KmerIndex
+from lesv_tpu_torch.io.fasta import revcomp
 
 QOFF_INVALID = 0x7FFFFFFF
 SOFF_INVALID = 0xFFFFFFFF

@@ -11,20 +11,42 @@ from __future__ import annotations
 
 import numpy as np
 
-from lesv_tpu.config import LesvConfig
-from lesv_tpu.ops.align_batch import global_align_pairs_host
-from lesv_tpu.ops.align_np import Alignment
-from lesv_tpu.ops.chain import Chain
-from lesv_tpu.ops.pairseed import mem_anchors, pair_chains
-from lesv_tpu.pipeline.batch_align import (
-    _pad_pow2_dim,
-    _pair_chain_cfg,
-    _shrink_M,
-)
-from lesv_tpu.utils import profiling
+from lesv_tpu_torch.config import LesvConfig
+from lesv_tpu_torch.ops.align_batch import global_align_pairs_host
+from lesv_tpu_torch.ops.align_np import Alignment
 from lesv_tpu_torch.ops.anchored import anchored_align_many
+from lesv_tpu_torch.ops.chain import Chain
 from lesv_tpu_torch.ops.chain_torch import chain_lanes
-from lesv_tpu_torch.ops.pairseed_torch import pair_matches_batch
+from lesv_tpu_torch.ops.pairseed import mem_anchors, pair_chains
+from lesv_tpu_torch.ops.pairseed_torch import (
+    _pad_pow2_dim,
+    pair_matches_batch,
+)
+from lesv_tpu_torch.utils import profiling
+
+
+def _pair_chain_cfg(cfg: LesvConfig):
+    """ChainConfig with pair-seeding semantics (min_cnt=1,
+    min_score=memsc_mem_score, `init_hit_finder.c:26-27`,
+    `cmdline_args.cpp:56-57`)."""
+    import dataclasses
+
+    c = dataclasses.replace(cfg.chain)
+    c.min_seed_cnt = 1
+    c.min_chain_score = cfg.memsc.mem_score
+    return c
+
+
+def _shrink_M(total: np.ndarray, M: int, lo: int = 256) -> int:
+    """x2-ladder slot count covering every lane's (budget-clamped) match
+    count; match buffers beyond it hold only invalid slots.  Coarse
+    steps keep the number of (remotely) compiled chain-scan shapes
+    small while bounding fetched dead slots at 2x."""
+    need = int(np.minimum(np.asarray(total), M).max(initial=0))
+    Mp = lo
+    while Mp < need:
+        Mp *= 2
+    return min(Mp, M)
 
 
 def batch_pair_chains(

@@ -5,43 +5,165 @@ Counterpart of :mod:`lesv_tpu.pipeline.mapper` (the reference's
 ``qx2map``).  Read seeding, pair seeding and their chain scans run as
 torch ops plus the chain-scan kernel; every alignment fill and traceback
 runs on the fill and traceback kernels; candidate windows, chain
-extraction and the M4 filters are the JAX package's host code.  The
-device is explicit: every entry point takes ``device``.
+extraction and the M4 filters are host code.  The device is explicit:
+every entry point takes ``device``.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from lesv_tpu.config import LesvConfig
-from lesv_tpu.index.kmer_index import KmerIndex
-from lesv_tpu.io.fasta import revcomp
-from lesv_tpu.io.seqstore import SeqStore
-from lesv_tpu.ops.chain import Chain
-from lesv_tpu.ops.cigar import match_mask
-from lesv_tpu.ops.pairseed import mem_anchors
-from lesv_tpu.pipeline.batch_align import _pad_pow2_dim, _shrink_M
-from lesv_tpu.pipeline.mapper import (
-    FWD,
-    M4,
-    REV,
-    CandidateWindow,
-    _chains_by_read_host,
-    _hsp_contained,
-    _query_batches,
-    _VolStoreView,
-    _window_ddf_chains,
-    find_candidate_windows,
-    subject_volumes,
-)
-from lesv_tpu.utils import profiling
+from lesv_tpu_torch.config import LesvConfig
+from lesv_tpu_torch.index.kmer_index import KmerIndex
+from lesv_tpu_torch.io.fasta import revcomp
+from lesv_tpu_torch.io.seqstore import SeqStore
 from lesv_tpu_torch.ops.anchored import anchored_align_many
+from lesv_tpu_torch.ops.chain import Chain, extract_chains_np
 from lesv_tpu_torch.ops.chain_torch import chain_lanes
+from lesv_tpu_torch.ops.cigar import match_mask
+from lesv_tpu_torch.ops.pairseed import mem_anchors
+from lesv_tpu_torch.ops.pairseed_torch import _pad_pow2_dim
+from lesv_tpu_torch.ops.seeding import collect_seed_matches
 from lesv_tpu_torch.ops.seeding_torch import seed_matches_batch
-from lesv_tpu_torch.pipeline.batch_align import batch_pair_chains
+from lesv_tpu_torch.pipeline.batch_align import _shrink_M, batch_pair_chains
+from lesv_tpu_torch.utils import profiling
+from lesv_tpu_torch.utils.logging import log
+
+FWD, REV = 0, 1
+
+
+@dataclass
+class M4:
+    """One mapping record (reference `corelib/m4_record.h`).
+
+    qoff/qend are strand-oriented (coordinates on the qdir-oriented query),
+    matching the reference convention (`find_sv_reads.c:131-141`).
+    """
+
+    qid: int
+    qdir: int
+    qoff: int
+    qend: int
+    qsize: int
+    sid: int
+    soff: int
+    send: int
+    ssize: int
+    ident_perc: float
+    score: int
+    dist: int = 0   # edit-ish distance: alignment columns - matches
+    # the alignment itself (kept in-memory; the reference round-trips
+    # text M4 + re-alignment instead)
+    ops: np.ndarray | None = field(default=None, repr=False)
+
+
+@dataclass
+class CandidateWindow:
+    sid: int
+    sfrom: int
+    sto: int
+    score: int
+    qdir: int
+
+
+def find_candidate_windows(
+    chains_by_dir: dict[int, list[Chain]],
+    index: KmerIndex,
+    qlen: int,
+    cfg: LesvConfig,
+) -> list[CandidateWindow]:
+    """Group DDF chains by subject, keep top max_target_seqs subjects, expand
+    each chain to a subject window, merge near windows.
+
+    Window expansion mirrors `adjust_init_hit_subject_offset`
+    (`hbn_find_subseq_hit.c:119-156`): from the chain position extend by
+    1.3x the flanking query length, capped at +30kb, clipped to the subject.
+    """
+    mcfg = cfg.map
+    # collect (sid, window, score, qdir)
+    raw: list[CandidateWindow] = []
+    for qdir, chains in chains_by_dir.items():
+        for c in chains:
+            gpos = np.int64(c.sbeg)
+            sid, loc = index.global_to_local(np.array([gpos]))
+            sid, loc = int(sid[0]), int(loc[0])
+            ssize = int(index.subject_starts[sid + 1] - index.subject_starts[sid])
+            # chain midpoint anchor
+            mid_q = (c.qbeg + c.qend) // 2
+            mid_s = int((c.sbeg + c.send) // 2 - index.subject_starts[sid])
+            ql = mid_q
+            qr = qlen - mid_q
+            x = min(int(qlen * mcfg.subseq_margin_factor), ql + mcfg.subseq_max_gap)
+            sfrom = max(0, mid_s - min(x, mid_s))
+            x = min(int(qlen * mcfg.subseq_margin_factor), qr + mcfg.subseq_max_gap)
+            sto = min(ssize, mid_s + x)
+            raw.append(CandidateWindow(sid, sfrom, sto, c.score, qdir))
+    if not raw:
+        return []
+    # top subjects by best score
+    best_by_sid: dict[int, int] = {}
+    for w in raw:
+        best_by_sid[w.sid] = max(best_by_sid.get(w.sid, 0), w.score)
+    top_sids = sorted(best_by_sid, key=lambda s: -best_by_sid[s])[: mcfg.max_target_seqs]
+    out: list[CandidateWindow] = []
+    for sid in top_sids:
+        for qdir in (FWD, REV):
+            ws = sorted(
+                (w for w in raw if w.sid == sid and w.qdir == qdir),
+                key=lambda w: w.sfrom,
+            )
+            merged: list[CandidateWindow] = []
+            for w in ws:
+                if merged and w.sfrom - merged[-1].sto <= mcfg.max_subseq_gap_merge:
+                    merged[-1].sto = max(merged[-1].sto, w.sto)
+                    merged[-1].score = max(merged[-1].score, w.score)
+                else:
+                    merged.append(CandidateWindow(w.sid, w.sfrom, w.sto, w.score, qdir))
+            out.extend(merged)
+    return out
+
+
+def _window_ddf_chains(chains: list[Chain], index: KmerIndex,
+                       w: CandidateWindow) -> list[Chain]:
+    """DDF chains whose anchors fall inside window ``w``, with subject
+    offsets translated to window-local coordinates (the -skip_memsc
+    path's anchor source)."""
+    import dataclasses
+
+    base = int(index.subject_starts[w.sid])
+    lo, hi = base + w.sfrom, base + w.sto
+    out: list[Chain] = []
+    for c in chains:
+        a = c.anchors
+        keep = (a[:, 1] >= lo) & (a[:, 1] + index.k <= hi)
+        if not keep.any():
+            continue
+        a2 = a[keep].copy()
+        a2[:, 1] -= lo
+        out.append(dataclasses.replace(c, anchors=a2))
+    out.sort(key=lambda c: -c.score)
+    return out
+
+
+def _hsp_contained(kept: list[M4], m: M4, eps: int = 100) -> bool:
+    for a in kept:
+        if (a.qdir == m.qdir and a.sid == m.sid
+                and m.qoff + eps >= a.qoff and m.qend <= a.qend + eps
+                and m.soff + eps >= a.soff and m.send <= a.send + eps):
+            return True
+    return False
+
+
+def _chains_by_read_host(read: np.ndarray, index: KmerIndex,
+                         cfg: LesvConfig) -> dict[int, list[Chain]]:
+    matches = collect_seed_matches(index, read, cfg.seeding)
+    return {d: extract_chains_np(matches[d][0], matches[d][1],
+                                 length=index.k, cfg=cfg.chain)
+            for d in (FWD, REV)}
 
 
 def _seed_chain_chunk(reads, index, cfg, M, Qmax, device):
@@ -193,6 +315,80 @@ def map_batch(
     return out
 
 
+def query_volumes(sizes: list[int], max_res: int) -> list[list[int]]:
+    """Greedy in-order packing of reads into query volumes of
+    <= ``max_res`` residues (-max_query_vol_res; the reference's query
+    DB volume partitioning, `makehbndb.c:20-26`).  Volumes are the
+    resume/grid-striding granularity (`app/map/main.c:35,41,55`)."""
+    vols: list[list[int]] = []
+    cur: list[int] = []
+    res = 0
+    for qid, sz in enumerate(sizes):
+        if cur and res + sz > max_res:
+            vols.append(cur)
+            cur, res = [], 0
+        cur.append(qid)
+        res += sz
+    if cur:
+        vols.append(cur)
+    return vols
+
+
+def _query_batches(qstore: SeqStore, cfg: LesvConfig):
+    """Read batches bounded by count (batch_reads) AND residues
+    (-query_batch_size, `hbn_align_one_volume.c:55-83`): bounds in-flight
+    seed-match memory for long-read sets.  Batches never straddle a
+    query-volume boundary (-max_query_vol_res), so batch checkpoints
+    compose with volume-granular resume/striding."""
+    B, R = cfg.map.batch_reads, cfg.map.query_batch_size
+    sizes = [qstore.seq_size(q) for q in range(qstore.num_seqs)]
+    for vol in query_volumes(sizes, cfg.map.max_query_vol_res):
+        batch: list[int] = []
+        res = 0
+        for qid in vol:
+            sz = sizes[qid]
+            if batch and (len(batch) >= B or res + sz > R):
+                yield batch
+                batch, res = [], 0
+            batch.append(qid)
+            res += sz
+        if batch:
+            yield batch
+
+
+class _VolStoreView:
+    """Subject store restricted to one volume: volume-local subject ids
+    delegate to the backing store (the mapper sees the volume as the
+    whole world, `app/map/main.c:40-70`)."""
+
+    def __init__(self, store: SeqStore, lo: int):
+        self._store, self._lo = store, lo
+
+    def get(self, sid: int, *a, **kw):
+        return self._store.get(sid + self._lo, *a, **kw)
+
+    def seq_size(self, sid: int) -> int:
+        return self._store.seq_size(sid + self._lo)
+
+
+def subject_volumes(store: SeqStore, max_res: int) -> list[tuple[int, int]]:
+    """Partition subjects into volumes of <= max_res residues (whole
+    subjects; a single over-sized subject gets its own volume), the
+    reference's seqdb volume rule (`makehbndb.c:20-26`)."""
+    vols: list[tuple[int, int]] = []
+    lo = 0
+    res = 0
+    for sid in range(store.num_seqs):
+        sz = store.seq_size(sid)
+        if sid > lo and res + sz > max_res:
+            vols.append((lo, sid))
+            lo, res = sid, 0
+        res += sz
+    if lo < store.num_seqs:
+        vols.append((lo, store.num_seqs))
+    return vols
+
+
 def map_all(
     reads: list[tuple[str, np.ndarray]],
     store: SeqStore,
@@ -208,7 +404,7 @@ def map_all(
     store).  With ``ckpt_dir`` each read batch's M4s are checkpointed and
     a restarted run resumes after the completed batches.  ``sid_base``
     translates volume-local subject ids back to global ids."""
-    from lesv_tpu.pipeline import stages_io as sio
+    from lesv_tpu_torch.pipeline import stages_io as sio
 
     cfg = cfg or LesvConfig()
     if qstore is None:
@@ -244,8 +440,6 @@ def map_all_volumes(
     """Out-of-core mapping: subject volumes of <= max_subject_vol_res
     residues, each indexed and mapped in turn (checkpointed per (volume,
     batch)); M4s are merged per query, score-sorted within a query."""
-    from lesv_tpu.utils.logging import log
-
     cfg = cfg or LesvConfig()
     vols = subject_volumes(store, cfg.map.max_subject_vol_res)
     qstore = SeqStore.from_records(reads)

@@ -8,10 +8,15 @@ import pytest
 import torch
 
 from lesv_tpu.config import AlignConfig
+from lesv_tpu_torch.config import AlignConfig as PortAlignConfig
 from lesv_tpu.ops import align_jax
 from lesv_tpu.ops.align_pallas import pallas_banded_align_kernel
 from lesv_tpu.sim import mutate_read
 from lesv_tpu_torch.ops import align_torch
+
+# one intra-op thread: the suite runs several workers at once, and the
+# small CPU tensor ops of the plain versions gain nothing from more
+torch.set_num_threads(1)
 
 
 def _batch(pairs, Qmax, Smax):
@@ -102,7 +107,8 @@ def test_fill_and_traceback_match_jax(name):
         shape = (max(len(q) for q, _ in pairs), max(len(s) for _, s in pairs))
     q, s, qlen, slen = _batch(pairs, *shape)
 
-    got = align_torch.banded_align_batch(q, s, qlen, slen, W, mode, cfg,
+    got = align_torch.banded_align_batch(q, s, qlen, slen, W, mode,
+                                         PortAlignConfig(),
                                          free_end=free_end, device="cpu")
     want = align_jax.banded_align_batch(q, s, qlen, slen, W, mode, cfg,
                                         free_end=free_end)
@@ -121,7 +127,8 @@ def test_fill_and_traceback_match_jax(name):
         W, mode, cfg, free_end=free_end)
     td, ts, tei, teb, tok = align_torch.banded_align_kernel(
         torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(qlen),
-        torch.from_numpy(slen), W, mode, cfg, free_end=free_end)
+        torch.from_numpy(slen), W, mode, PortAlignConfig(),
+        free_end=free_end)
     jd = np.asarray(jd)
     for i in range(len(pairs)):
         np.testing.assert_array_equal(td[i, : qlen[i] + 1].numpy(),
@@ -213,8 +220,8 @@ def test_align_pairs_matches_jax(free_end):
     pairs.append((np.zeros(0, np.uint8), s))              # empty: None
     cfg = AlignConfig()
     align_batch.reset_fill_stats()
-    got = align_batch.align_pairs(pairs, cfg, free_end=free_end,
-                                  device="cpu")
+    got = align_batch.align_pairs(pairs, PortAlignConfig(),
+                                  free_end=free_end, device="cpu")
     want = _align_pairs_jax(pairs, cfg, free_end)
     assert got[-1] is None and want[-1] is None
     for g, w in zip(got[:-1], want[:-1]):
@@ -232,7 +239,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.zeros((1, 8), dtype=torch.uint8)
     ln = torch.ones(1, dtype=torch.int32)
     with pytest.raises(ValueError):
-        align_torch.fill_cuda(q, q, ln, ln, 8, "full", AlignConfig())
+        align_torch.fill_cuda(q, q, ln, ln, 8, "full", PortAlignConfig())
     with pytest.raises(ValueError):
         align_torch.traceback_cuda(torch.zeros((1, 9, 8), dtype=torch.uint8),
                                    ln, ln, ln.bool(), 8, "full", 20)

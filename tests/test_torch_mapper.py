@@ -1,9 +1,14 @@
 """The port's map stage on CPU tensors against lesv_tpu's map_all
 (engine "device") on the worlds of tests/test_mapper.py: the M4 lists
-must be equal, op strings included."""
+must be equal, op strings included (no tolerance; ident_perc after
+round(x, 9)).  The world is built with lesv_tpu; the port gets its store,
+index and configuration as plain arrays through lesv_tpu_torch.convert."""
+
+import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from lesv_tpu.config import LesvConfig
 from lesv_tpu.index.kmer_index import KmerIndex
@@ -11,7 +16,22 @@ from lesv_tpu.io.fasta import revcomp
 from lesv_tpu.io.seqstore import SeqStore
 from lesv_tpu.pipeline import mapper as jax_mapper
 from lesv_tpu.sim import mutate_read, random_genome
+from lesv_tpu_torch import convert
 from lesv_tpu_torch.pipeline import mapper
+
+# one intra-op thread: the suite runs several workers at once, and the
+# small CPU tensor ops of the plain versions gain nothing from more
+torch.set_num_threads(1)
+
+
+def _port(store, index, cfg):
+    """The port's own store, index and configuration from lesv_tpu's."""
+    return (convert.seqstore_from_arrays(store.names, store.starts,
+                                         store.packed, store.ambig),
+            convert.kmer_index_from_arrays(
+                index.k, index.window, index.uniq_hash, index.start,
+                index.positions, index.subject_starts),
+            convert.config_from_dict(dataclasses.asdict(cfg)))
 
 
 def _key(m):
@@ -42,7 +62,8 @@ def world():
         ("junk", rng.integers(0, 4, 5_000).astype(np.uint8)),
     ]
     want, _ = jax_mapper.map_all(reads, store, index, cfg)
-    got, qstore = mapper.map_all(reads, store, index, cfg, device="cpu")
+    got, qstore = mapper.map_all(reads, *_port(store, index, cfg),
+                                 device="cpu")
     return dict(want=want, got=got, store=store, index=index, cfg=cfg,
                 reads=reads, qstore=qstore)
 
@@ -70,14 +91,12 @@ def test_map_read_matches_jax(world, qid, name):
 
 def test_map_batch_host_engine_matches_jax(world):
     """engine "host" (host seeding/chaining, device alignment)."""
-    import dataclasses
-
     cfg = dataclasses.replace(world["cfg"])
     cfg.map = dataclasses.replace(cfg.map, engine="host")
     batch = [(i, world["qstore"].get(i)) for i in range(3)]
     want = jax_mapper.map_batch(batch, world["store"], world["index"], cfg)
-    got = mapper.map_batch(batch, world["store"], world["index"], cfg,
-                           device="cpu")
+    got = mapper.map_batch(batch, *_port(world["store"], world["index"],
+                                         cfg), device="cpu")
     _assert_same_m4s(got, want)
 
 
@@ -98,11 +117,12 @@ def test_map_all_volumes_matches_single_volume(tmp_path):
         reads.append((f"r{i}", mutate_read(rng, frag, err=0.05)))
     index = KmerIndex.build(store, cfg.index)
     want, _ = jax_mapper.map_all(reads, store, index, cfg)
-    mono, _ = mapper.map_all(reads, store, index, cfg, device="cpu")
+    mono, _ = mapper.map_all(reads, *_port(store, index, cfg), device="cpu")
     _assert_same_m4s(mono, want)
 
     cfg.map.max_subject_vol_res = 65_000      # two volumes of 2 chroms
     ck = str(tmp_path / "vparts")
+    store, _, cfg = _port(store, index, cfg)
     vols, _ = mapper.map_all_volumes(reads, store, cfg, ckpt_dir=ck,
                                      device="cpu")
     key = lambda m: (m.qid, m.qdir, m.sid, m.qoff, m.qend, m.soff, m.send,
@@ -115,3 +135,41 @@ def test_map_all_volumes_matches_single_volume(tmp_path):
     again, _ = mapper.map_all_volumes(reads, store, cfg, ckpt_dir=ck,
                                       device="cpu")
     assert sorted(map(key, again)) == sorted(map(key, vols))
+
+
+def test_map_routes_fills_to_both_state_types(monkeypatch):
+    """A read with a 1.6 kb stretch at 35% error holds no seed there, so
+    the stretch becomes one inter-anchor segment of the Q=2048 bucket,
+    outside the int16 gate: the map path hands that bucket to the int32
+    fill and the small buckets to the int16 one, and the records equal
+    lesv_tpu's."""
+    from lesv_tpu_torch.ops import align_torch
+
+    rng = np.random.default_rng(4)
+    genome = random_genome(rng, 200_000)
+    store = SeqStore.from_records([("chr1", genome)])
+    cfg = LesvConfig()
+    index = KmerIndex.build(store, cfg.index)
+    st = 50_000
+    reads = [
+        ("clean", mutate_read(rng, genome[120_000:132_000], err=0.1)),
+        ("noisy_mid", np.concatenate([
+            mutate_read(rng, genome[st : st + 5_000], err=0.1),
+            mutate_read(rng, genome[st + 5_000 : st + 6_600], err=0.35),
+            mutate_read(rng, genome[st + 6_600 : st + 12_000], err=0.1)])),
+    ]
+    seen = set()
+    plain = align_torch.banded_align_kernel
+
+    def spy(q, *a, i16=False, **kw):
+        seen.add((q.shape[1], i16))
+        return plain(q, *a, i16=i16, **kw)
+
+    monkeypatch.setattr(align_torch, "banded_align_kernel", spy)
+    got, _ = mapper.map_all(reads, *_port(store, index, cfg), device="cpu")
+    assert (2048, False) in seen
+    assert any(i16 for _, i16 in seen)
+    assert all(i16 == (Q < 2048) for Q, i16 in seen), seen
+    want, _ = jax_mapper.map_all(reads, store, index, cfg)
+    assert {m.qid for m in got} == {0, 1}
+    _assert_same_m4s(got, want)

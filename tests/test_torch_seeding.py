@@ -1,7 +1,10 @@
 """The port's reference-index seeding and pair seeding (torch ops on CPU
 tensors) against lesv_tpu's seed_matches_batch / pair_matches_batch:
 exact equality of (qoff, soff, valid, total), budget-truncated lanes
-included."""
+included.  The index is built with lesv_tpu and handed to the port as
+plain arrays (lesv_tpu_torch.convert)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -11,7 +14,18 @@ from lesv_tpu.config import IndexConfig, SeedingConfig
 from lesv_tpu.index.kmer_index import KmerIndex
 from lesv_tpu.io.seqstore import SeqStore
 from lesv_tpu.sim import mutate_read, random_genome
+from lesv_tpu_torch import convert
 from lesv_tpu_torch.ops import pairseed_torch, seeding_torch
+
+# one intra-op thread: the suite runs several workers at once, and the
+# small CPU tensor ops of the plain versions gain nothing from more
+torch.set_num_threads(1)
+
+
+def _port_index(index):
+    return convert.kmer_index_from_arrays(
+        index.k, index.window, index.uniq_hash, index.start,
+        index.positions, index.subject_starts)
 
 
 def _assert_same(want, got):
@@ -45,8 +59,10 @@ def test_seed_matches_batch_matches_jax(k, w, M):
     index, reads = _index_world(k, w)
     cfg = SeedingConfig()
     want = seed_matches_batch(reads, index, cfg, M=M)
-    got = seeding_torch.seed_matches_batch(reads, index, cfg, M=M,
-                                           device="cpu")
+    got = seeding_torch.seed_matches_batch(
+        reads, _port_index(index),
+        convert.config_from_dict(dataclasses.asdict(cfg), "seeding"), M=M,
+        device="cpu")
     _assert_same(want, got)
     total = got[3].numpy()
     assert total.max() > 0
@@ -63,6 +79,7 @@ def test_sampled_offsets_and_device_index_round_trip():
             seeding_torch.sampled_offsets_static(4096, k, w, cfg),
             sampled_offsets_static(4096, k, w, cfg))
     index, _ = _index_world(15, 10)
+    index = _port_index(index)
     di = seeding_torch.device_index_of(index, "cpu")
     assert seeding_torch.device_index_of(index, "cpu") is di
     h, start = di.hash.numpy(), di.start.numpy()
