@@ -26,9 +26,26 @@ Phases, each printing one JSON line:
    must have launched, and the M4 records of the first 32 reads must equal
    those of the port's host engine (host seeding and chaining, plain fills
    on CPU tensors);
-6. ``run``: reads to a VCF through
-   ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on a
-   16 Mb simulated reference with 20 DEL + 20 INS planted and reads at
+6. ``mesh``: a mesh over every visible card
+   (``lesv_tpu_torch.parallel.mesh``).  ``mesh_fill`` at diag B=256 Q=256
+   W=512 (int16 gate open) and diag B=256 Q=4096 W=512 (int32) against
+   ``fill_cuda`` on one card and the plain version (every live direction
+   byte, score, end cell, ok), timed in turns beside ``fill_cuda`` on the
+   host clock with every card synchronised; ``sharded_align_step`` and
+   ``sharded_seed_chain_step`` against the host sums of their per-lane
+   outputs and against a mesh of one card; then the map configuration of
+   phase ``map`` again under ``use_mesh``: the M4 records must equal phase
+   ``map``'s and every kernel must launch under the mesh;
+7. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
+   reference with 5 DEL + 5 INS planted and reads at coverage 10, once
+   with ``LocalExchange`` in this process and once as two spawned
+   processes joined by ``TorchExchange`` over gloo (a ``file://``
+   rendezvous under ``build/smoke_dist``), both on the cards present: the call
+   lists must be equal field for field, on every rank.  A rank that fails
+   or outlasts ``DIST_JOIN_S`` fails the phase;
+8. ``run``: reads to a VCF through
+   ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on an
+   8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
    coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
    counts, launches per kernel for the map stage and for the stages after
    it (every kernel must launch in both), recall and precision of the calls
@@ -55,14 +72,24 @@ is null.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# phase run: cut from 16 Mb / 20 + 20 SVs when the mesh and dist phases
+# were added, so that the whole script stays near half its time limit
+RUN_GENOME_BP = 8_000_000
+RUN_N_SV = 10               # of each kind, DEL and INS
+DIST_GENOME_BP = 4_000_000
+DIST_N_SV = 5
+DIST_JOIN_S = 600           # a rank still alive after this is killed
 
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 67e12 / 4
@@ -480,6 +507,295 @@ def phase_map(rng):
               oracle_s=time.time() - t2))
     if got != want:
         raise AssertionError("M4 records differ from the host engine")
+    return launches, dict(reads=reads, store=store, index=index, cfg=cfg,
+                          m4s=m4s, bases=bases)
+
+
+def sync_all() -> None:
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host-clock time of one call, every card synchronised before and
+    after: CUDA events of one card cannot see the others."""
+    fn()
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_mesh(rng, world):
+    import numpy as np
+    import torch
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.config import AlignConfig
+    from lesv_tpu_torch.ops import align_torch as at
+    from lesv_tpu_torch.parallel import mesh as pm
+    from lesv_tpu_torch.pipeline.mapper import map_all
+
+    cfg = AlignConfig()
+    m = pm.make_mesh()
+    n_dev = m.size
+    if n_dev != torch.cuda.device_count():
+        raise AssertionError("the mesh does not span every visible card")
+    dev0 = torch.device("cuda", 0)
+    launches = {k: 0 for k in _ext.LAUNCHES}
+
+    # (a) mesh_fill against fill_cuda on one card and the plain version
+    for kind, i16 in (("i16_diag_Q256_W512", True), ("diag_W512", False)):
+        qn, sn, qln, sln, W, mode, fe = fill_case(rng, kind)
+        q, s, ql, sl = (torch.from_numpy(x).to(dev0)
+                        for x in (qn, sn, qln, sln))
+        B, Q = q.shape
+        name = "fill_i16" if i16 else "fill"
+        _ext.reset_launches()
+        fill = pm.mesh_fill(m, q, s, ql, sl, W, mode, cfg, fe)
+        n_launched = _ext.LAUNCHES[name]
+        launches[name] += n_launched
+        placed = all(t.device == d for d, sh in zip(m.devices, fill.shards)
+                     for t in sh)
+        got = [torch.cat([sh[j].to(dev0) for sh in fill.shards])
+               for j in range(5)]
+        one = at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=i16)
+        plain = at.banded_align_kernel(q, s, ql, sl, W, mode, cfg, fe,
+                                       i16=i16)
+        eq1, d1, e1 = _fill_outputs_equal(got, one, ql, dirs=True)
+        eqp, dp, ep = _fill_outputs_equal(got, plain, ql, dirs=True)
+        small_eq = all(torch.equal(a, b.cpu())
+                       for a, b in zip(fill.small(), got[1:]))
+
+        def run_mesh():
+            return pm.mesh_fill(m, q, s, ql, sl, W, mode, cfg, fe)
+
+        def run_one():
+            return at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=i16)
+
+        # in turns: one card, mesh, mesh, one card
+        a1 = wall_ms(run_one, 5)
+        am = wall_ms(run_mesh, 5)
+        bm = wall_ms(run_mesh, 5)
+        b1 = wall_ms(run_one, 5)
+        fb = fill_bound(qln, sln, W, INT16_OPS_S if i16 else INT32_OPS_S)
+        emit(dict(phase="mesh", part="mesh_fill", case=kind, devices=n_dev,
+                  B=B, Q=Q, W=W, i16=fill.i16, launches=n_launched,
+                  shards_on_their_cards=placed,
+                  equal_fill_cuda=eq1, equal_plain=eqp, dirs_equal=d1 and dp,
+                  max_abs_err=max(e1, ep), small_view_equal=small_eq,
+                  mesh_fill_ms=(am + bm) / 2, fill_cuda_ms=(a1 + b1) / 2,
+                  bound_ms=fb["bound_ms"] / n_dev, bound_by=fb["bound_by"],
+                  clock="host, all cards synchronised"))
+        if not (eq1 and eqp and small_eq and placed and fill.i16 == i16
+                and n_launched == n_dev):
+            raise AssertionError(f"mesh_fill mismatch in {kind}")
+
+    # (b) the sharded steps: merged sums against the per-lane outputs
+    qn, sn, qln, sln, W, mode, fe = fill_case(rng, "i16_diag_Q256_W512")
+    _ext.reset_launches()
+    score, end_b, ok, n_ok, total = pm.sharded_align_step(
+        m, W, mode, cfg)(qn, sn, qln, sln)
+    launches["fill_i16"] += _ext.LAUNCHES["fill_i16"]
+    one = at.banded_fill(*(torch.from_numpy(x).to(dev0)
+                           for x in (qn, sn, qln, sln)), W, mode, cfg, fe)
+    align_ok = (n_ok == int(ok.sum())
+                and total == int(torch.where(ok, score, 0).sum())
+                and torch.equal(score, one[1].cpu())
+                and torch.equal(end_b, one[3].cpu())
+                and torch.equal(ok, one[4].cpu()))
+    lcfg, index = world["cfg"], world["index"]
+    from lesv_tpu_torch.io.fasta import revcomp
+
+    # 32 reads cut to 16,384 bases, both strands as separate lanes
+    Bs, Qmax, M = 64, 16384, lcfg.map.seed_match_budget
+    codes = np.full((Bs, Qmax), 4, np.uint8)
+    qlen = np.zeros(Bs, np.int64)
+    for i, (_, r) in enumerate(world["reads"][: Bs // 2]):
+        r = r[:Qmax]
+        codes[2 * i, : len(r)] = r
+        codes[2 * i + 1, : len(r)] = revcomp(r)
+        qlen[2 * i] = qlen[2 * i + 1] = len(r)
+    args = dict(k=index.k, M=M, J=lcfg.chain.lookback, seeding=lcfg.seeding,
+                chain=lcfg.chain)
+    _ext.reset_launches()
+    t0 = time.time()
+    f, best, n_chained, score_sum = pm.sharded_seed_chain_step(m, **args)(
+        codes, qlen, index)
+    sync_all()
+    seed_chain_s = time.time() - t0
+    chain_launched = _ext.LAUNCHES["chain"]
+    launches["chain"] += chain_launched
+    f1, best1, n1, sum1 = pm.sharded_seed_chain_step(pm.make_mesh(1), **args)(
+        codes, qlen, index)
+    chain_ok = (n_chained == int((best >= lcfg.chain.min_chain_score).sum())
+                and score_sum == int(best.sum())
+                and torch.equal(f, f1) and torch.equal(best, best1)
+                and (n_chained, score_sum) == (n1, sum1))
+    emit(dict(phase="mesh", part="sharded_steps", devices=n_dev,
+              align_step_equal=align_ok, n_ok=n_ok, total_score=total,
+              seed_chain_step_equal=chain_ok, lanes=Bs, Qmax=Qmax, M=M,
+              n_chained=n_chained, score_sum=score_sum,
+              chain_launches=chain_launched, seed_chain_s=seed_chain_s))
+    if not (align_ok and chain_ok and n_chained >= 3 * Bs // 8
+            and chain_launched == n_dev):
+        raise AssertionError("a sharded step disagrees with its host sums")
+
+    # (c) the map stage of phase map, every fill chunk shared over the
+    # mesh; before it the same stage pinned to card 0, which no mesh takes
+    sync_all()
+    t1 = time.time()
+    pinned, _ = map_all(world["reads"], world["store"], index, lcfg,
+                        device="cuda:0")
+    sync_all()
+    pinned_s = time.time() - t1
+    _ext.reset_launches()
+    t1 = time.time()
+    with pm.use_mesh(m):
+        m4s, _ = map_all(world["reads"], world["store"], index, lcfg,
+                         device="cuda")
+    sync_all()
+    map_s = time.time() - t1
+    under_mesh = dict(_ext.LAUNCHES)
+    key = lambda x: (x.qid, x.qdir, x.sid, x.qoff, x.qend, x.soff, x.send,
+                     x.score, x.dist, x.ident_perc, x.ops.tobytes())
+    same = ([key(x) for x in m4s] == [key(x) for x in world["m4s"]]
+            == [key(x) for x in pinned])
+    emit(dict(phase="mesh", part="map_under_mesh", devices=n_dev,
+              reads=len(world["reads"]), read_bases=world["bases"],
+              map_s=map_s, bases_per_s=world["bases"] / map_s, m4=len(m4s),
+              map_on_card_0_s=pinned_s, equal_phase_map_and_card_0=same,
+              launches=under_mesh))
+    print(f"mesh: {n_dev} device(s), map under the mesh {map_s:.3f} s, "
+          f"{world['bases'] / map_s:.0f} bases/s", flush=True)
+    _require_launched(under_mesh, "by the map stage under the mesh")
+    if not same:
+        raise AssertionError("M4 records under the mesh, of phase map and "
+                             "on card 0 differ")
+    return {k: launches[k] + under_mesh[k] for k in launches}
+
+
+def _dist_rank(rank: int, world_size: int, job: str) -> None:
+    """One rank of phase dist (a spawned process): joins the gloo group,
+    runs ``distributed_call`` over ``TorchExchange`` on the cards present
+    and leaves its calls beside the job file."""
+    import torch
+    import torch.distributed as td
+
+    sys.path.insert(0, REPO)
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.parallel.dist import TorchExchange, distributed_call
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with open(job, "rb") as fh:
+        ref, reads, cfg = pickle.load(fh)
+    td.init_process_group("gloo", init_method=f"file://{job}.group",
+                          world_size=world_size, rank=rank)
+    try:
+        t0 = time.time()
+        calls = distributed_call(ref, reads, cfg, exchange=TorchExchange(),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        out = dict(calls=calls, seconds=time.time() - t0,
+                   launches=dict(_ext.LAUNCHES))
+    finally:
+        td.destroy_process_group()
+    with open(f"{job}.rank{rank}.tmp", "wb") as fh:
+        pickle.dump(out, fh)
+    os.replace(f"{job}.rank{rank}.tmp", f"{job}.rank{rank}")
+
+
+def phase_dist(rng):
+    import torch
+    import torch.multiprocessing as mp
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.config import LesvConfig
+    from lesv_tpu_torch.parallel.dist import LocalExchange, distributed_call
+    from lesv_tpu_torch.sim import plant_svs, random_genome, simulate_reads
+
+    t0 = time.time()
+    coverage = 10.0
+    genome = random_genome(rng, DIST_GENOME_BP)
+    donor, truth = plant_svs(rng, genome, n_del=DIST_N_SV, n_ins=DIST_N_SV)
+    reads = simulate_reads(rng, donor, coverage=coverage, mean_len=12_000,
+                           err=0.1)
+    ref = [("chrSim", genome)]
+    cfg = LesvConfig()
+    setup_s = time.time() - t0
+    bases = sum(len(r) for _, r in reads)
+
+    _ext.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    single = distributed_call(ref, reads, cfg, exchange=LocalExchange(),
+                              device="cuda")
+    torch.cuda.synchronize()
+    single_s = time.time() - t1
+    launches = dict(_ext.LAUNCHES)
+    recall, precision, missed, false = score_calls(single, truth.svs)
+
+    work = os.path.join(REPO, "build", "smoke_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    job = os.path.join(work, "job.pkl")
+    with open(job, "wb") as fh:
+        pickle.dump((ref, reads, cfg), fh)
+    n_ranks = 2
+    ctx = mp.get_context("spawn")
+    t2 = time.time()
+    procs = [ctx.Process(target=_dist_rank, args=(r, n_ranks, job))
+             for r in range(n_ranks)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + DIST_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.time() - t2
+    if hung or any(codes):
+        raise AssertionError(f"dist ranks hung {hung}, exit codes {codes}")
+    outs = []
+    for r in range(n_ranks):
+        with open(f"{job}.rank{r}", "rb") as fh:
+            outs.append(pickle.load(fh))
+    shutil.rmtree(work, ignore_errors=True)
+    want = [dataclasses.asdict(c) for c in single]
+    same = [[dataclasses.asdict(c) for c in o["calls"]] == want
+            for o in outs]
+    rank_launches = {k: sum(o["launches"][k] for o in outs)
+                     for k in launches}
+    emit(dict(phase="dist", genome_bp=len(genome), coverage=coverage,
+              planted=len(truth.svs), reads=len(reads), read_bases=bases,
+              setup_s=setup_s, devices=torch.cuda.device_count(),
+              single_host_s=single_s, single_host_bases_per_s=bases / single_s,
+              launches_single_host=launches, calls=len(single),
+              recall=recall, precision=precision,
+              missed=[[sv.kind, sv.ref_pos, sv.length] for sv in missed],
+              false_calls=[[c.kind, c.pos, c.length] for c in false],
+              ranks=n_ranks, exchange="TorchExchange over gloo",
+              ranks_wall_s=ranks_s,
+              rank_s=[o["seconds"] for o in outs],
+              rank_launches=[o["launches"] for o in outs],
+              ranks_equal_single_host=same))
+    _require_launched(launches, "by distributed_call on one host")
+    _require_launched(rank_launches, "by the two ranks together")
+    if not single or recall < 0.9 or precision < 0.9:
+        raise AssertionError(f"dist: {len(single)} calls, recall {recall}, "
+                             f"precision {precision}")
+    if not all(same):
+        raise AssertionError("a rank's calls differ from the single host's")
     return launches
 
 
@@ -510,8 +826,8 @@ def phase_run(rng):
 
     t0 = time.time()
     coverage = 10.0
-    genome = random_genome(rng, 16_000_000)
-    donor, truth = plant_svs(rng, genome, n_del=20, n_ins=20)
+    genome = random_genome(rng, RUN_GENOME_BP)
+    donor, truth = plant_svs(rng, genome, n_del=RUN_N_SV, n_ins=RUN_N_SV)
     reads = simulate_reads(rng, donor, coverage=coverage, mean_len=12_000,
                            err=0.1)
     setup_s = time.time() - t0
@@ -626,7 +942,10 @@ def main() -> int:
     stats: dict = {}
     phase_fill(rng, stats)
     phase_chain(rng, stats)
-    map_launches = phase_map(rng)
+    map_launches, map_world = phase_map(rng)
+    mesh_launches = phase_mesh(rng, map_world)
+    del map_world
+    dist_launches = phase_dist(rng)
     run_launches, after_map = phase_run(rng)
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "jaxlib", "lesv_tpu")
@@ -645,7 +964,9 @@ def main() -> int:
     emit({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
              launches=run_launches[k], launches_map_phase=map_launches[k],
-             launches_run_after_map=after_map[k], library_ms=None,
+             launches_run_after_map=after_map[k],
+             launches_mesh_phase=mesh_launches[k],
+             launches_dist_phase=dist_launches[k], library_ms=None,
              **stats[k])
         for k in ("fill", "fill_i16", "chain", "traceback")]})
     emit({"ok": True, "device": {"platform": "gpu",

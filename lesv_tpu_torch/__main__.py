@@ -1,19 +1,50 @@
 """lesv_tpu_torch command-line interface.
 
+  python -m lesv_tpu_torch config cfg                # write a config template
   python -m lesv_tpu_torch run cfg [--device cuda]   # full pipeline -> VCF
+  python -m lesv_tpu_torch split in.fa out.fa        # subread splitting
+  python -m lesv_tpu_torch view seqs.fa              # DB stats (qx2viewdb)
   python -m lesv_tpu_torch map ref.fa reads.fa [-o out.m4]
                                [--outfmt m4|paf|sam] [--device cuda]
+  python -m lesv_tpu_torch dump seqs.fa out.fa       # store -> FASTA
 
-The same pipeline and mapper as ``python -m lesv_tpu run`` / ``map``, on a
-torch device; config files use the same key=value format.  The default
-device is ``cuda``; without a GPU a command fails unless ``--device cpu``
-is given explicitly.
+The same subcommands as ``python -m lesv_tpu``; ``run`` and ``map`` work
+on a torch device, the others on the host only.  Config files use the same
+key=value format.  The default device is ``cuda``: without a GPU a command
+fails unless ``--device cpu`` is given explicitly, and with several cards
+plain ``cuda`` shares every alignment batch over all of them
+(:mod:`lesv_tpu_torch.parallel.mesh`) while ``cuda:N`` stays on card N.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+CFG_TEMPLATE = """\
+PROJECT=
+RAW_READS=
+REFERENCE=
+TRF_FILE=
+THREADS=4
+
+# split long read into short subreads
+MAX_SUBSEQ_SIZE=50000
+SUBSEQ_OVLP_SIZE=0
+MIN_LAST_SUBSEQ_SIZE=20000
+
+# reference mapping options
+MAP_OPTIONS=
+
+# sv read options
+SVR_MIN_SEQ_SIZE=3000
+SVR_MIN_SVE_PERC_IDENTITY=70.0
+SVR_MAX_OVERHANG=300
+
+# sv signature options
+SVSIG_MIN_INDEL_SIZE=40
+"""
 
 
 def resolve_device(name: str):
@@ -137,6 +168,12 @@ def load_trf_bed(path: str, name_to_sid) -> dict[int, list[tuple[int, int]]]:
     return out
 
 
+def cmd_config(args):
+    with open(args.cfg, "w") as fh:
+        fh.write(CFG_TEMPLATE)
+    print(f"wrote template to {args.cfg}")
+
+
 def cmd_run(args):
     from lesv_tpu_torch.io.fasta import read_fastx
     from lesv_tpu_torch.pipeline.driver import run_pipeline
@@ -156,6 +193,32 @@ def cmd_run(args):
     print(f"{len(res.calls)} SV calls -> {project}/calls.vcf")
     for k, v in res.stats.items():
         print(f"  {k}: {v}")
+
+
+def cmd_split(args):
+    from lesv_tpu_torch.config import SplitConfig
+    from lesv_tpu_torch.io.fasta import read_fastx, write_fasta
+    from lesv_tpu_torch.io.seqstore import split_subreads
+
+    cfg = SplitConfig(max_subseq_size=args.seg_len,
+                      overlap_size=args.ovlp_len,
+                      min_last_subseq_size=args.min_last)
+    write_fasta(args.out, split_subreads(read_fastx(args.input), cfg))
+
+
+def cmd_view(args):
+    from lesv_tpu_torch.io.fasta import read_fastx
+    from lesv_tpu_torch.io.seqstore import SeqStore
+
+    st = SeqStore.from_records(read_fastx(args.input))
+    sizes = st.sizes()
+    print(f"sequences: {st.num_seqs}")
+    print(f"residues:  {st.total_res}")
+    if st.num_seqs:
+        print(f"max:       {int(sizes.max())}")
+        print(f"min:       {int(sizes.min())}")
+        print(f"avg:       {int(sizes.mean())}")
+        print(f"N50:       {st.n50()}")
 
 
 def cmd_map(args):
@@ -190,14 +253,42 @@ def cmd_map(args):
         print(f"{len(m4s)} records -> {args.out}", file=sys.stderr)
 
 
+def cmd_dump(args):
+    """qx2hbndb2fasta equivalent: store -> FASTA."""
+    from lesv_tpu_torch.io.fasta import read_fastx, write_fasta
+    from lesv_tpu_torch.io.seqstore import SeqStore
+
+    st = SeqStore.from_records(read_fastx(args.input))
+    write_fasta(args.out, ((st.name_of(i), st.get(i))
+                           for i in range(st.num_seqs)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="lesv_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pc = sub.add_parser("config", help="write a config template")
+    pc.add_argument("cfg")
+    pc.set_defaults(fn=cmd_config)
+
     pr = sub.add_parser("run", help="run the full SV-calling pipeline")
     pr.add_argument("cfg")
     pr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu is explicit)")
     pr.set_defaults(fn=cmd_run)
+
+    ps = sub.add_parser("split", help="split reads into subreads")
+    ps.add_argument("input")
+    ps.add_argument("out")
+    ps.add_argument("--seg-len", type=int, default=50_000)
+    ps.add_argument("--ovlp-len", type=int, default=0)
+    ps.add_argument("--min-last", type=int, default=20_000)
+    ps.set_defaults(fn=cmd_split)
+
+    pv = sub.add_parser("view", help="sequence DB stats")
+    pv.add_argument("input")
+    pv.set_defaults(fn=cmd_view)
+
     pm = sub.add_parser("map", help="map reads, emit M4/PAF/SAM")
     pm.add_argument("reference")
     pm.add_argument("reads")
@@ -206,6 +297,12 @@ def main(argv=None):
     pm.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu is explicit)")
     pm.set_defaults(fn=cmd_map)
+
+    pd = sub.add_parser("dump", help="dump a sequence DB to FASTA")
+    pd.add_argument("input")
+    pd.add_argument("out")
+    pd.set_defaults(fn=cmd_dump)
+
     args = p.parse_args(argv)
     args.fn(args)
 

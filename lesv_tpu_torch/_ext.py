@@ -7,8 +7,12 @@ git-ignored ``build/kernels/`` directory of the checkout, and loaded with
 per source).  Nothing here runs at import time: the CPU tests import every
 module of the port on machines without ``nvcc`` or a GPU.
 
-Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+Every C entry point launches on the current device, on the stream it is
+given, and returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero code.  A wrapper launches under :func:`on_device_of`, which makes
+its tensors' device current (the sources hold no per-process state, and
+``fill.cu`` opts in to its dynamic shared memory on every launch, so any
+card of the host can be addressed).
 
 ``LAUNCHES`` holds one plain integer per kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -118,6 +122,24 @@ def function(kernel: str, symbol: str, argtypes: list):
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def on_device_of(*tensors):
+    """Context manager for one kernel launch: makes the CUDA device that
+    holds ``tensors`` current, so that the launch, its stream
+    (:func:`stream_of`) and its ``cudaFuncSetAttribute`` all address that
+    card.  Tensors on different devices, or not on a CUDA device, raise
+    ``ValueError``."""
+    import torch
+
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError("kernel inputs lie on different devices: "
+                         f"{sorted(map(str, devs))}")
+    (dev,) = devs
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs lie on {dev}, not on a CUDA device")
+    return torch.cuda.device(dev)
 
 
 def stream_of(t) -> int:

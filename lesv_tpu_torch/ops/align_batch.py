@@ -120,7 +120,7 @@ def align_pairs(
     pairs: Sequence[tuple[np.ndarray, np.ndarray]],
     cfg: AlignConfig | None = None,
     free_end: bool = False,
-    device="cpu",
+    device="cuda",
     force_i16: bool | None = None,
 ) -> list[Alignment | None]:
     """Align many (q, s) pairs on ``device``; global by default, extension

@@ -268,6 +268,7 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
         raise ValueError(f"fill_cuda: bad band mode {mode!r} / W={W}")
     i16 = _use_i16(Qmax, W, cfg, i16)
     dev = q.device
+    on_dev = _ext.on_device_of(q, s, qlen, slen)
     dirs = torch.empty((B, Qmax + 1, W), dtype=torch.uint8, device=dev)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     end_i = torch.empty_like(score)
@@ -280,13 +281,14 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
     P, I = _ext.P, _ext.I
     fn = _ext.function("fill", "lesv_fill",
                        [P, P, P, P] + [I] * 13 + [P] * 7)
-    err = fn(q.data_ptr(), s.data_ptr(), qlen.data_ptr(), slen.data_ptr(),
-             B, Qmax, Smax, W, int(mode == "diag"), int(free_end), int(i16),
-             cfg.match, cfg.mismatch, cfg.gap_open1, cfg.gap_ext1,
-             cfg.gap_open2, cfg.gap_ext2,
-             scratch.data_ptr() if scratch is not None else None,
-             dirs.data_ptr(), score.data_ptr(), end_i.data_ptr(),
-             end_b.data_ptr(), ok.data_ptr(), _ext.stream_of(q))
+    with on_dev:
+        err = fn(q.data_ptr(), s.data_ptr(), qlen.data_ptr(),
+                 slen.data_ptr(), B, Qmax, Smax, W, int(mode == "diag"),
+                 int(free_end), int(i16), cfg.match, cfg.mismatch,
+                 cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2, cfg.gap_ext2,
+                 scratch.data_ptr() if scratch is not None else None,
+                 dirs.data_ptr(), score.data_ptr(), end_i.data_ptr(),
+                 end_b.data_ptr(), ok.data_ptr(), _ext.stream_of(q))
     _ext.check(err, "lesv_fill")
     _ext.LAUNCHES["fill_i16" if i16 else "fill"] += 1
     return dirs, score, end_i, end_b, ok.bool()
@@ -379,6 +381,7 @@ def traceback_cuda(dirs, end_i, end_b, ok, W: int, mode: str, T: int):
             or not dirs.is_contiguous()):
         raise ValueError("traceback_cuda: dirs must be contiguous CUDA u8")
     dev = dirs.device
+    on_dev = _ext.on_device_of(dirs, end_i, end_b, ok)
     end_i = end_i.to(torch.int32).contiguous()
     end_b = end_b.to(torch.int32).contiguous()
     okv = ok.to(torch.uint8).contiguous()
@@ -388,9 +391,11 @@ def traceback_cuda(dirs, end_i, end_b, ok, W: int, mode: str, T: int):
     P, I = _ext.P, _ext.I
     fn = _ext.function("traceback", "lesv_traceback",
                        [P, I, I, I, P, P, P, I, I, P, P, P, P])
-    err = fn(dirs.data_ptr(), B, R, W, end_i.data_ptr(), end_b.data_ptr(),
-             okv.data_ptr(), int(mode == "diag"), T, ops.data_ptr(),
-             nops.data_ptr(), reached.data_ptr(), _ext.stream_of(dirs))
+    with on_dev:
+        err = fn(dirs.data_ptr(), B, R, W, end_i.data_ptr(),
+                 end_b.data_ptr(), okv.data_ptr(), int(mode == "diag"), T,
+                 ops.data_ptr(), nops.data_ptr(), reached.data_ptr(),
+                 _ext.stream_of(dirs))
     _ext.check(err, "lesv_traceback")
     _ext.LAUNCHES["traceback"] += 1
     return ops, nops, reached.bool()
@@ -408,11 +413,17 @@ def traceback_device(dirs, end_i, end_b, ok, W: int, mode: str, T: int):
 
 def banded_align_dispatch(q, s, qlen, slen, W: int, mode: str,
                           cfg: AlignConfig | None = None,
-                          free_end: bool = False, device="cpu",
+                          free_end: bool = False, device="cuda",
                           force_i16: bool | None = None):
     """Upload a padded batch, run fill + traceback on ``device``; returns
     a pending handle for :func:`banded_align_finish` (CUDA work is queued,
-    not waited for)."""
+    not waited for).
+
+    With a mesh active for ``device`` (:func:`parallel.mesh.active_mesh`)
+    and at least one live lane per mesh device, the batch is filled and
+    traced back shard by shard over the mesh instead."""
+    from lesv_tpu_torch.parallel import mesh as meshmod
+
     cfg = cfg or AlignConfig()
     qlen = np.asarray(qlen, np.int32)
     slen = np.asarray(slen, np.int32)
@@ -422,34 +433,62 @@ def banded_align_dispatch(q, s, qlen, slen, W: int, mode: str,
     n_live = int(nz[-1]) + 1 if len(nz) else 1
     dev = torch.device(device)
 
-    def put(x, dt):
-        return torch.from_numpy(np.ascontiguousarray(x[:n_live], dt)).to(
-            dev)
+    def live(x, dt, pad=0, fill=0):
+        x = np.ascontiguousarray(x[:n_live], dt)
+        width = ((0, pad),) + ((0, 0),) * (x.ndim - 1)
+        return np.pad(x, width, constant_values=fill) if pad else x
 
-    qt, st = put(q, np.uint8), put(s, np.uint8)
-    qlt, slt = put(qlen, np.int32), put(slen, np.int32)
-    dirs, score, end_i, end_b, ok = banded_fill(qt, st, qlt, slt, W, mode,
-                                                cfg, free_end, force_i16)
-    T = dirs.shape[1] + W + 2
-    ops, nops, reached = traceback_device(dirs, end_i, end_b, ok, W, mode, T)
-    return dict(ops=ops, nops=nops, reached=reached, score=score,
-                end_i=end_i, end_b=end_b, ok=ok, B=n_live, B_orig=B, W=W,
-                Qmax=qt.shape[1], mode=mode, free_end=free_end,
+    mesh = meshmod.active_mesh(dev)
+    if mesh is not None and n_live >= mesh.size:
+        # lanes padded to a multiple of the mesh size with 1 x 1 fills
+        # whose ok is masked below
+        pad = -n_live % mesh.size
+        fills = meshmod.mesh_fill(
+            mesh, live(q, np.uint8, pad), live(s, np.uint8, pad),
+            live(qlen, np.int32, pad, 1), live(slen, np.int32, pad, 1), W,
+            mode, cfg, free_end, force_i16).shards
+    else:
+        pad = 0
+        fills = [banded_fill(
+            *(torch.from_numpy(live(x, dt)).to(dev)
+              for x, dt in ((q, np.uint8), (s, np.uint8), (qlen, np.int32),
+                            (slen, np.int32))),
+            W, mode, cfg, free_end, force_i16)]
+    # traceback per shard on the shard's device: the direction bytes
+    # never leave their card
+    per = (n_live + pad) // len(fills)
+    shards = []
+    for i, (dirs, score, end_i, end_b, ok) in enumerate(fills):
+        if (i + 1) * per > n_live:
+            ok = ok & (torch.arange(i * per, (i + 1) * per,
+                                    device=ok.device) < n_live)
+        ops, nops, reached = traceback_device(
+            dirs, end_i, end_b, ok, W, mode, dirs.shape[1] + W + 2)
+        shards.append(dict(ops=ops, nops=nops, reached=reached, score=score,
+                           end_i=end_i, end_b=end_b, ok=ok))
+    return dict(shards=shards, B=n_live, B_orig=B, W=W,
+                Qmax=np.shape(q)[1], mode=mode, free_end=free_end,
                 slen=slen[:n_live])
 
 
 def banded_align_finish(pend: dict):
     """Read a pending fill back; the ``align_jax.banded_align_batch``
-    result dict (numpy): score, ok, ops, nops, qe, se."""
+    result dict (numpy): score, ok, ops, nops, qe, se.  Only ops, nops,
+    reached, score and the end cells cross to the host, shard by shard."""
     B, W, mode, free_end = (pend["B"], pend["W"], pend["mode"],
                             pend["free_end"])
-    ops = pend["ops"].cpu().numpy()
-    nops = pend["nops"].cpu().numpy().astype(np.int64)
-    reached = pend["reached"].cpu().numpy()
-    score = pend["score"].cpu().numpy()
-    end_i = pend["end_i"].cpu().numpy()
-    end_b = pend["end_b"].cpu().numpy()
-    ok = pend["ok"].cpu().numpy()
+
+    def fetch(key):
+        return np.concatenate([sh[key].cpu().numpy()
+                               for sh in pend["shards"]])[:B]
+
+    ops = fetch("ops")
+    nops = fetch("nops").astype(np.int64)
+    reached = fetch("reached")
+    score = fetch("score")
+    end_i = fetch("end_i")
+    end_b = fetch("end_b")
+    ok = fetch("ok")
     # subject end: band start of the end row plus the end slot
     se = guide_of(mode, pend["Qmax"], W)[end_i] + end_b
     out = {
@@ -477,7 +516,7 @@ def banded_align_finish(pend: dict):
 
 def banded_align_batch(q, s, qlen, slen, W: int, mode: str,
                        cfg: AlignConfig | None = None,
-                       free_end: bool = False, device="cpu",
+                       free_end: bool = False, device="cuda",
                        force_i16: bool | None = None):
     """numpy in, numpy out: fill and traceback on ``device``."""
     return banded_align_finish(banded_align_dispatch(

@@ -54,7 +54,7 @@ def anchored_align_many(
     tasks: list[tuple[np.ndarray, np.ndarray, np.ndarray, int]],
     cfg: AlignConfig | None = None,
     extend: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> list[Alignment | None]:
     """Align many (q, s, anchors, k) tasks, batching all inter-anchor
     segments (and then all end-extension blocks) across tasks into

@@ -95,8 +95,7 @@ def chain_scan_cuda(qs, ss, vs, J: int, length: int, max_dq: int,
         raise ValueError(f"chain_scan_cuda: lookback J={J} not in "
                          "(32, 64, 128)")
     B, M = qs.shape
-    if qs.device.type != "cuda":
-        raise ValueError("chain_scan_cuda: expects CUDA tensors")
+    on_dev = _ext.on_device_of(qs, ss, vs)
     qs = qs.to(torch.int32).contiguous()
     ss = ss.to(torch.int64).contiguous()
     vv = vs.to(torch.uint8).contiguous()
@@ -106,9 +105,10 @@ def chain_scan_cuda(qs, ss, vs, J: int, length: int, max_dq: int,
     P, I = _ext.P, _ext.I
     fn = _ext.function("chain", "lesv_chain",
                        [P, P, P] + [I] * 7 + [P] * 4)
-    err = fn(qs.data_ptr(), ss.data_ptr(), vv.data_ptr(), B, M, J // 32,
-             length, max_dq, max_dr, bw, f.data_ptr(), p.data_ptr(),
-             v.data_ptr(), _ext.stream_of(qs))
+    with on_dev:
+        err = fn(qs.data_ptr(), ss.data_ptr(), vv.data_ptr(), B, M, J // 32,
+                 length, max_dq, max_dr, bw, f.data_ptr(), p.data_ptr(),
+                 v.data_ptr(), _ext.stream_of(qs))
     _ext.check(err, "lesv_chain")
     _ext.LAUNCHES["chain"] += 1
     return f, p, v

@@ -132,7 +132,7 @@ def pair_matches_batch(
     M: int = 8192,
     Qb: int | None = None,
     Sb: int | None = None,
-    device="cpu",
+    device="cuda",
 ):
     """k-mer matching of many (query, subject) pairs on ``device``.
 

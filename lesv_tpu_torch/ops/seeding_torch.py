@@ -135,7 +135,7 @@ def seed_matches_batch(
     cfg: SeedingConfig | None = None,
     M: int = 8192,
     Qmax: int | None = None,
-    device="cpu",
+    device="cuda",
 ):
     """Seeding of a batch of reads, both strands, on ``device``.
 

@@ -53,7 +53,7 @@ def batch_pair_chains(
     pairs: list[tuple[np.ndarray, np.ndarray]],
     cfg: LesvConfig,
     k: int | None = None,
-    device="cpu",
+    device="cuda",
 ) -> list[list[Chain]]:
     """Chains for many (q, s) pairs: seeding + sort + chain scan on
     ``device`` in (pow2 Q, pow2 S) buckets of up to 256 pairs when
@@ -102,7 +102,7 @@ def chain_and_align_many(
     extend: bool = True,
     k: int | None = None,
     global_fallback: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> list[Alignment | None]:
     """Best-chain anchored alignment for each (q, s) pair, batched; with
     ``global_fallback``, pairs whose anchored alignment leaves an end

@@ -183,7 +183,7 @@ def _chains_by_read_device(
     batch: list[tuple[int, np.ndarray]],
     index: KmerIndex,
     cfg: LesvConfig,
-    device="cpu",
+    device="cuda",
 ) -> list[dict[int, list[Chain]]]:
     """Batched seeding + chain DP for every read of the batch (both
     strands), in pow2-length buckets of 64 reads.  On a GPU, reads whose
@@ -234,7 +234,7 @@ def map_batch(
     store: SeqStore,
     index: KmerIndex,
     cfg: LesvConfig | None = None,
-    device="cpu",
+    device="cuda",
 ) -> list[M4]:
     """Map a batch of (qid, read) on ``device``: batched seeding + chain
     DP (cfg.map.engine == "device") or the per-read host oracle;
@@ -398,7 +398,7 @@ def map_all(
     qstore: SeqStore | None = None,
     part_prefix: str = "map_part",
     sid_base: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> tuple[list[M4], SeqStore]:
     """Map reads against one index on ``device``; returns (M4s, query
     store).  With ``ckpt_dir`` each read batch's M4s are checkpointed and
@@ -435,7 +435,7 @@ def map_all_volumes(
     store: SeqStore,
     cfg: LesvConfig | None = None,
     ckpt_dir: str | None = None,
-    device="cpu",
+    device="cuda",
 ) -> tuple[list[M4], SeqStore]:
     """Out-of-core mapping: subject volumes of <= max_subject_vol_res
     residues, each indexed and mapped in turn (checkpointed per (volume,

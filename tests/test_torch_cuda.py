@@ -136,6 +136,88 @@ def test_chain_kernel_equals_plain(dev, J):
         assert torch.equal(a, b)
 
 
+def _outputs_equal(got, want, qlen):
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+    live = (torch.arange(got[0].shape[1])[None, :, None]
+            <= qlen.cpu()[:, None, None])
+    assert not torch.where(live, got[0].cpu() != want[0].cpu(), False).any()
+
+
+@pytest.mark.parametrize("Q,W,i16", [(256, 512, True), (3000, 256, False)])
+def test_mesh_fill_on_the_cards_equals_one_card_and_plain(dev, Q, W, i16):
+    """``mesh_fill`` over every visible card launches the fill kernel once
+    per card, leaves each shard's outputs on its card, and equals
+    ``fill_cuda`` on one card and the plain version."""
+    from lesv_tpu_torch.parallel import mesh
+
+    m = mesh.make_mesh()
+    assert m.size == torch.cuda.device_count()
+    rng = np.random.default_rng(Q)
+    cfg = AlignConfig()
+    B = 8 * m.size
+    host = _fill_batch(rng, W, "diag", B=B, lo=Q // 3, hi=Q + Q // 4, Q=Q)
+    name = "fill_i16" if i16 else "fill"
+    before = _ext.LAUNCHES[name]
+    fill = mesh.mesh_fill(m, *host, W, "diag", cfg, False)
+    assert fill.i16 == i16 == align_torch.i16_ok(Q, W, cfg)
+    assert _ext.LAUNCHES[name] == before + m.size
+    for d, sh in zip(m.devices, fill.shards):
+        assert all(t.device == d for t in sh)
+    got = [torch.cat([sh[j].cpu() for sh in fill.shards]) for j in range(5)]
+    q, s, qlen, slen = (torch.from_numpy(a).to(dev) for a in host)
+    _outputs_equal(got, align_torch.fill_cuda(q, s, qlen, slen, W, "diag",
+                                              cfg, False, i16=i16), qlen)
+    _outputs_equal(got, align_torch.banded_align_kernel(
+        q, s, qlen, slen, W, "diag", cfg, False, i16=i16), qlen)
+    for a, b in zip(fill.small(), got[1:]):
+        assert torch.equal(a, b)
+
+
+def test_kernels_launch_on_the_highest_numbered_card(dev):
+    """Fill, traceback and chain scan on tensors of the last visible card
+    (the current device stays card 0) equal their plain versions; inputs
+    on two different cards are refused."""
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    assert torch.cuda.current_device() == 0
+    rng = np.random.default_rng(9)
+    cfg = AlignConfig()
+    W = 128
+    q, s, qlen, slen = (torch.from_numpy(a).to(last)
+                        for a in _fill_batch(rng, W, "diag"))
+    kout = align_torch.banded_fill(q, s, qlen, slen, W, "diag", cfg)
+    assert all(t.device == last for t in kout)
+    i16 = align_torch.i16_ok(q.shape[1], W, cfg)
+    _outputs_equal(kout, align_torch.banded_align_kernel(
+        q, s, qlen, slen, W, "diag", cfg, i16=i16), qlen)
+    kd, _, kei, keb, kok = kout
+    T = q.shape[1] + 1 + W + 2
+    for a, b in zip(align_torch.traceback_device(kd, kei, keb, kok, W,
+                                                 "diag", T),
+                    align_torch.traceback_plain(kd, kei, keb, kok, W, "diag",
+                                                T)):
+        assert a.device == last and torch.equal(a, b)
+    M = 300
+    qoff = np.sort(rng.integers(0, 20_000, (4, M)), axis=1)
+    soff = 3_000_000_000 + qoff + rng.integers(0, 1600, (4, M))
+    qs, ss, vs = chain_torch.sort_seeds_device(
+        torch.from_numpy(qoff.astype(np.int32)).to(last),
+        torch.from_numpy(soff).to(last),
+        torch.ones((4, M), dtype=torch.bool, device=last))
+    args = dict(J=64, length=15, max_dq=5000, max_dr=5000, bw=1500)
+    for a, b in zip(chain_torch.chain_scan(qs, ss, vs, **args),
+                    chain_torch.chain_scan_plain(qs, ss, vs, **args)):
+        assert a.device == last and torch.equal(a, b)
+    assert torch.cuda.current_device() == 0
+    if last.index > 0:
+        with pytest.raises(ValueError, match="different devices"):
+            align_torch.fill_cuda(q.to("cuda:0"), s, qlen, slen, W, "diag",
+                                  cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        align_torch.fill_cuda(q.cpu(), s.cpu(), qlen.cpu(), slen.cpu(), W,
+                              "diag", cfg)
+
+
 def test_map_on_cuda_equals_cpu(dev):
     """The map stage on the GPU (all four kernels) equals the same map
     stage on CPU tensors (all plain versions)."""

@@ -1,11 +1,17 @@
 """lesv_tpu_torch imports neither jax nor anything of lesv_tpu: a tiny
 simulated world goes through the port's CLI (``map``, and ``run`` from
-reads to a VCF) on the CPU in a fresh interpreter (tests/conftest.py
-imports jax into every test process, so this needs a subprocess), and no
-source file of the port or ``chip_smoke.py`` names lesv_tpu in an import."""
+reads to a VCF) and through ``parallel.dist.distributed_call`` on the CPU
+in a fresh interpreter (tests/conftest.py imports jax into every test
+process, so this needs a subprocess), and no source file of the port
+(``parallel/`` included) or ``chip_smoke.py`` names lesv_tpu in an import.
+Also: no function of the port defaults its ``device`` to the CPU."""
 
+import ast
 import glob
+import importlib
+import inspect
 import os
+import pkgutil
 import re
 import subprocess
 import sys
@@ -41,6 +47,18 @@ PROBE_RUN = """
 import sys
 from lesv_tpu_torch.__main__ import main
 main(["run", sys.argv[1], "--device", "cpu"])
+""" + CHECK
+
+
+PROBE_DIST = """
+import sys
+from lesv_tpu_torch.io.fasta import read_fastx
+from lesv_tpu_torch.parallel import mesh
+from lesv_tpu_torch.parallel.dist import LocalExchange, distributed_call
+calls = distributed_call(list(read_fastx(sys.argv[1])),
+                         list(read_fastx(sys.argv[2])),
+                         exchange=LocalExchange(), device="cpu")
+print("CALLS", [(c.kind, c.pos, c.length) for c in calls])
 """ + CHECK
 
 
@@ -108,10 +126,63 @@ def test_run_cli_runs_without_jax_or_lesv_tpu(tmp_path):
                and "SVTYPE=DEL" in row[7] for row in rows), rows
 
 
+def test_distributed_call_runs_without_jax_or_lesv_tpu(tmp_path):
+    rng = np.random.default_rng(11)
+    genome = random_genome(rng, 24_000)
+    donor, truth = plant_svs(rng, genome, n_del=1, n_ins=0, min_len=150,
+                             max_len=300, margin=9_000, min_gap=1_000)
+    reads = simulate_reads(rng, donor, coverage=5.0, mean_len=4_500,
+                           min_len=3_500, err=0.06)
+    ref_fa = str(tmp_path / "ref.fa")
+    reads_fa = str(tmp_path / "reads.fa")
+    write_fasta(ref_fa, [("chr1", genome)])
+    write_fasta(reads_fa, reads)
+    r = subprocess.run([sys.executable, "-c", PROBE_DIST, ref_fa, reads_fa],
+                       capture_output=True, text=True, timeout=600,
+                       env=_probe_env(), cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX" in r.stdout
+    (line,) = [ln for ln in r.stdout.splitlines() if ln.startswith("CALLS")]
+    (sv,) = truth.svs
+    assert any(k == "DEL" and abs(pos - sv.ref_pos) <= 50
+               for k, pos, _ in ast.literal_eval(line[len("CALLS "):])), line
+
+
+def test_no_device_parameter_defaults_to_the_cpu():
+    """Every entry point runs on the card unless the caller asks for the
+    CPU: no function or method of the port has a ``device`` parameter
+    whose default is ``"cpu"`` or ``None``."""
+    import lesv_tpu_torch
+
+    seen, bad = 0, []
+    for info in pkgutil.walk_packages(lesv_tpu_torch.__path__,
+                                      "lesv_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        funcs = []
+        for _, obj in inspect.getmembers(mod):
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                funcs.append(obj)
+            elif inspect.isclass(obj):
+                funcs += [f for _, f in inspect.getmembers(
+                    obj, inspect.isfunction)]
+        for fn in funcs:
+            par = inspect.signature(fn).parameters.get("device")
+            if par is None:
+                continue
+            seen += 1
+            if par.default is None or str(par.default) == "cpu":
+                bad.append(f"{mod.__name__}.{fn.__qualname__}")
+    assert seen >= 20, seen
+    assert not bad, bad
+
+
 def test_no_source_file_imports_lesv_tpu():
     files = glob.glob(os.path.join(REPO, "lesv_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
+    assert any(os.sep + "parallel" + os.sep in f for f in files)
     pat = re.compile(r"\b(?:import|from)\s+lesv_tpu\b(?!_)")
     bad = []
     for path in files:
