@@ -15,11 +15,20 @@ Phases, each printing one JSON line:
    its gate holds (full Q=64 W=65, diag Q=256 W=512, diag Q=256 W=128 with
    free_end) against its plain int16 version (every live direction byte,
    score, end cell, ok) and against the int32 kernel (score, end cell, ok
-   and the ops of the traceback kernel), and one shape outside the gate,
-   which must raise.  Exact equality (tolerance 0: all values are
-   integers); timed with CUDA events;
+   and the ops of the traceback kernel), the traceback kernel against its
+   plain version on the int16 kernel's direction bytes (diag Q=256 W=512
+   is the shape `run` launches it at most), the traceback kernel on two
+   probes of made-up direction bytes (``TRACEBACK_PROBES``: a walk along
+   one row, a walk straight up a new row a step), and one shape outside
+   the gate, which must raise.  Exact equality (tolerance 0: all values
+   are integers).  Each kernel is timed three ways: ``ms``, CUDA events
+   around back-to-back calls (``cuda_ms``: the wrapper's host cost counts
+   where it exceeds the kernel's); ``device_ms``, the same calls queued
+   behind a sleeping kernel (the kernel's own time); ``host_ms``, the host
+   clock to issue a call meanwhile (the wrapper's and the launcher's host
+   cost; ``device_host_ms``);
 4. ``chain``: the chain-scan kernel against its plain version at B=128,
-   J=64, M=16384 and M=8192 -- exact equality, timed;
+   J=64, M=16384 and M=8192 -- exact equality, timed the same three ways;
 5. ``map``: the map stage at a size users run: a 64 Mb simulated reference
    with planted SVs, 512 reads of mean length 12 kb at 10% error, mapped on
    the GPU through ``lesv_tpu_torch.pipeline.mapper.map_all``; every kernel
@@ -53,7 +62,8 @@ Phases, each printing one JSON line:
    back, and a second call with ``resume=True`` that returns the same calls
    without launching a kernel.
 
-Then the card's ``nvidia-smi`` line, the kernel table and
+Then the card's ``nvidia-smi`` line, the kernel table (the traceback at
+diag Q=4096 W=512 with diag Q=256 W=512 under ``other_shapes``) and
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
 
 Bounds in the kernel table: ``bound_ms`` is the larger of the bytes the
@@ -112,6 +122,9 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Time of one call: CUDA events around ``reps`` calls after a warm-up
+    call.  Where the wrapper's host cost exceeds the kernel's time, the
+    card idles between launches and that cost is counted too."""
     import torch
 
     fn()
@@ -124,6 +137,34 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_host_ms(fn, reps: int) -> tuple[float, float]:
+    """(device time, host time) of one call, both from ``reps`` calls that
+    the host queues behind a sleeping kernel: CUDA events around them give
+    the device time (the launches run back to back whatever the wrapper's
+    host cost), the host clock around issuing them the host cost of a call
+    (wrapper and launcher, none of the kernel's time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    busy_s = time.perf_counter() - t0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * busy_s * 2e9) + 100_000)  # cycles
+    a.record()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t1
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, host_s / reps * 1e3
 
 
 def once_ms(fn):
@@ -244,6 +285,28 @@ def _fill_outputs_equal(a, b, qlen, dirs: bool):
     return err == 0 and dirs_eq, dirs_eq, err
 
 
+# two traceback probes on made-up direction bytes, (B, R, W, mode, byte,
+# end row, end slot): "erun" walks 8,191 E steps along row 0 of a full
+# W=8192 band to the origin (the walk alone: one row staged), "mrun" 4,096
+# M steps straight up a diag W=512 band of 4,097 rows (a new row every
+# step, so the staging keeps pace or the walk waits)
+TRACEBACK_PROBES = dict(erun=(132, 4, 8192, "full", 0x09, 0, 8191),
+                        mrun=(256, 4097, 512, "diag", 0x00, 4096, 256))
+
+
+def traceback_probe(name: str, dev):
+    """(dirs, end_i, end_b, ok, W, mode, T) of a traceback probe on
+    ``dev``: every lane the same walk, T = R + W + 2."""
+    import torch
+
+    B, R, W, mode, byte, ei, eb = TRACEBACK_PROBES[name]
+    dirs = torch.full((B, R, W), byte, dtype=torch.uint8, device=dev)
+    end_i = torch.full((B,), ei, dtype=torch.int32, device=dev)
+    end_b = torch.full((B,), eb, dtype=torch.int32, device=dev)
+    ok = torch.ones(B, dtype=torch.bool, device=dev)
+    return dirs, end_i, end_b, ok, W, mode, R + W + 2
+
+
 def phase_fill(rng, stats):
     import torch
 
@@ -267,6 +330,7 @@ def phase_fill(rng, stats):
             return at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe)
 
         k_ms = cuda_ms(kern, 3)
+        k_dev, k_host = device_host_ms(kern, 3)
         kout = kern()
         kd, ks, kei, keb, kok = kout
         p_ms, pout = once_ms(
@@ -279,6 +343,7 @@ def phase_fill(rng, stats):
             return at.traceback_cuda(kd, kei, keb, kok, W, mode, T)
 
         t_ms = cuda_ms(tb, 3)
+        t_dev, t_host = device_host_ms(tb, 3)
         kops, kn, kr = tb()
         tp_ms, (pops, pn, pr) = once_ms(
             lambda: at.traceback_plain(kd, kei, keb, kok, W, mode, T))
@@ -292,11 +357,13 @@ def phase_fill(rng, stats):
         tbb = bound(steps + B * T + 13 * B, steps * TRACEBACK_OPS_PER_STEP)
         emit(dict(phase="fill", kernel="fill", case=kind, B=B, Q=Q, W=W,
                   mode=mode, free_end=fe, equal=eq, dirs_equal=dirs_eq,
-                  max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                  max_abs_err=err, kernel_ms=k_ms, kernel_device_ms=k_dev,
+                  kernel_host_ms=k_host, plain_ms=p_ms,
                   bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
                   kernel_gcells_s=cells / k_ms / 1e6,
                   plain_gcells_s=cells / p_ms / 1e6,
                   traceback_equal=tb_eq, traceback_ms=t_ms,
+                  traceback_device_ms=t_dev, traceback_host_ms=t_host,
                   traceback_plain_ms=tp_ms,
                   traceback_bound_ms=tbb["bound_ms"],
                   traceback_steps=steps,
@@ -305,10 +372,12 @@ def phase_fill(rng, stats):
         if not (eq and tb_eq):
             raise AssertionError(f"fill/traceback mismatch in {kind}")
         if kind == "diag_W512":
-            stats["fill"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+            stats["fill"] = dict(ms=k_ms, device_ms=k_dev, host_ms=k_host,
+                                 plain_ms=p_ms, max_abs_err=err,
                                  shape=f"diag B={B} Q={Q} W={W}", **fb)
             stats["traceback"] = dict(
-                ms=t_ms, plain_ms=tp_ms, max_abs_err=0,
+                ms=t_ms, device_ms=t_dev, host_ms=t_host, plain_ms=tp_ms,
+                max_abs_err=0,
                 shape=f"diag B={B} R={Q + 1} W={W} T={T}", **tbb)
 
     for kind in ("i16_full_Q64_W65", "i16_diag_Q256_W512",
@@ -330,17 +399,29 @@ def phase_fill(rng, stats):
         b16 = cuda_ms(kern16, 5)
         b32 = cuda_ms(kern32, 5)
         k_ms, k32_ms = (a16 + b16) / 2, (a32 + b32) / 2
+        k_dev, k_host = device_host_ms(kern16, 5)
         kout, wout = kern16(), kern32()
         p_ms, pout = once_ms(lambda: at.banded_align_kernel(
             q, s, ql, sl, W, mode, cfg, fe, i16=True))
         eq, dirs_eq, err = _fill_outputs_equal(kout, pout, ql, dirs=True)
         eq32, _, err32 = _fill_outputs_equal(kout, wout, ql, dirs=False)
         T = Q + 1 + W + 2
-        t16 = at.traceback_cuda(kout[0], kout[2], kout[3], kout[4], W, mode,
-                                T)
+
+        def tb16():
+            return at.traceback_cuda(kout[0], kout[2], kout[3], kout[4], W,
+                                     mode, T)
+
+        t_ms = cuda_ms(tb16, 5)
+        t_dev, t_host = device_host_ms(tb16, 5)
+        t16 = tb16()
         t32 = at.traceback_cuda(wout[0], wout[2], wout[3], wout[4], W, mode,
                                 T)
         ops_eq = all(torch.equal(a, b) for a, b in zip(t16, t32))
+        tp_ms, tplain = once_ms(lambda: at.traceback_plain(
+            kout[0], kout[2], kout[3], kout[4], W, mode, T))
+        tb_eq = all(torch.equal(a, b) for a, b in zip(t16, tplain))
+        steps = int(t16[1].sum())
+        tbb = bound(steps + B * T + 13 * B, steps * TRACEBACK_OPS_PER_STEP)
         cells = int(qln.sum()) * W
         fb = fill_bound(qln, sln, W, INT16_OPS_S)
         emit(dict(phase="fill", kernel="fill_i16", case=kind, B=B, Q=Q, W=W,
@@ -348,19 +429,55 @@ def phase_fill(rng, stats):
                   dirs_equal=dirs_eq, max_abs_err=err,
                   equal_i32_kernel=eq32, max_abs_err_vs_i32=err32,
                   ops_equal_i32_kernel=ops_eq, kernel_ms=k_ms,
+                  kernel_device_ms=k_dev, kernel_host_ms=k_host,
                   i32_kernel_ms=k32_ms, plain_ms=p_ms,
                   bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
                   kernel_gcells_s=cells / k_ms / 1e6,
+                  traceback_equal=tb_eq, traceback_ms=t_ms,
+                  traceback_device_ms=t_dev, traceback_host_ms=t_host,
+                  traceback_plain_ms=tp_ms,
+                  traceback_bound_ms=tbb["bound_ms"],
+                  traceback_steps=steps,
                   reached=int(t16[2].sum())))
-        if not (eq and eq32 and ops_eq):
+        if not (eq and eq32 and ops_eq and tb_eq):
             raise AssertionError(f"int16 fill mismatch in {kind}")
         if not bool(t16[2].any()):
             raise AssertionError(f"{kind}: no lane traced back")
         if kind == "i16_diag_Q256_W512":
-            stats["fill_i16"] = dict(ms=k_ms, plain_ms=p_ms,
+            stats["fill_i16"] = dict(ms=k_ms, device_ms=k_dev,
+                                     host_ms=k_host, plain_ms=p_ms,
                                      max_abs_err=max(err, err32),
                                      i32_kernel_ms=k32_ms,
                                      shape=f"diag B={B} Q={Q} W={W}", **fb)
+            # the traceback at the shape `run` launches it at most
+            stats["traceback_q256"] = dict(
+                ms=t_ms, device_ms=t_dev, host_ms=t_host, plain_ms=tp_ms,
+                max_abs_err=0,
+                shape=f"diag B={B} R={Q + 1} W={W} T={T}", **tbb)
+
+    for name in TRACEBACK_PROBES:
+        d, ei, eb, ok, W, mode, T = traceback_probe(name, dev)
+
+        def tbp():
+            return at.traceback_cuda(d, ei, eb, ok, W, mode, T)
+
+        t_ms = cuda_ms(tbp, 5)
+        t_dev, t_host = device_host_ms(tbp, 5)
+        got = tbp()
+        tp_ms, want = once_ms(
+            lambda: at.traceback_plain(d, ei, eb, ok, W, mode, T))
+        eq = all(torch.equal(a, b) for a, b in zip(got, want))
+        steps = int(got[1].max())
+        emit(dict(phase="fill", kernel="traceback", case=f"probe_{name}",
+                  B=d.shape[0], R=d.shape[1], W=W, mode=mode, T=T,
+                  equal=eq, traceback_ms=t_ms, traceback_device_ms=t_dev,
+                  traceback_host_ms=t_host, traceback_plain_ms=tp_ms,
+                  steps_per_lane=steps,
+                  device_ns_per_step=t_dev / steps * 1e6))
+        if not (eq and bool(got[2].all())):
+            raise AssertionError(f"traceback probe {name}: mismatch or a "
+                                 "lane that did not reach the origin")
+        del d
 
     # outside the gate the int16 kernel is refused, not wrapped
     (q, s, ql, sl), _, _, W, mode, fe = upload("diag_W512")
@@ -373,8 +490,29 @@ def phase_fill(rng, stats):
         raise AssertionError("int16 fill outside its gate did not raise")
 
 
-def phase_chain(rng, stats):
+def chain_case(rng, M: int, B: int = 128):
+    """(qoff, soff, valid) numpy seeds of B lanes of M slots: M/2 to M
+    valid seeds a lane along one diagonal (30% noise) at a random subject
+    offset below 2^32 - 1, invalid slots last with the sentinels."""
     import numpy as np
+
+    qoff = np.full((B, M), 0x7FFFFFFF, np.int32)
+    soff = np.full((B, M), 0xFFFFFFFF, np.int64)
+    valid = np.zeros((B, M), bool)
+    for b in range(B):
+        n = int(rng.integers(M // 2, M + 1))
+        base = int(rng.integers(0, 4_000_000_000))
+        qq = np.sort(rng.integers(0, 50_000, n))
+        ss = base + qq + rng.integers(0, 1600, n)
+        noise = rng.random(n) < 0.3
+        ss[noise] = base + rng.integers(0, 200_000, int(noise.sum()))
+        qoff[b, :n] = qq
+        soff[b, :n] = np.minimum(ss, 0xFFFFFFFE)
+        valid[b, :n] = True
+    return qoff, soff, valid
+
+
+def phase_chain(rng, stats):
     import torch
 
     from lesv_tpu_torch.ops import chain_torch as ct
@@ -383,19 +521,7 @@ def phase_chain(rng, stats):
     args = dict(J=64, length=15, max_dq=5000, max_dr=5000, bw=1500)
     for M in (16384, 8192):
         B = 128
-        qoff = np.full((B, M), 0x7FFFFFFF, np.int32)
-        soff = np.full((B, M), 0xFFFFFFFF, np.int64)
-        valid = np.zeros((B, M), bool)
-        for b in range(B):
-            n = int(rng.integers(M // 2, M + 1))
-            base = int(rng.integers(0, 4_000_000_000))
-            qq = np.sort(rng.integers(0, 50_000, n))
-            ss = base + qq + rng.integers(0, 1600, n)
-            noise = rng.random(n) < 0.3
-            ss[noise] = base + rng.integers(0, 200_000, int(noise.sum()))
-            qoff[b, :n] = qq
-            soff[b, :n] = np.minimum(ss, 0xFFFFFFFE)
-            valid[b, :n] = True
+        qoff, soff, valid = chain_case(rng, M, B)
         qs, ss_, vs = ct.sort_seeds_device(
             torch.from_numpy(qoff).to(dev), torch.from_numpy(soff).to(dev),
             torch.from_numpy(valid).to(dev))
@@ -404,6 +530,7 @@ def phase_chain(rng, stats):
             return ct.chain_scan_cuda(qs, ss_, vs, **args)
 
         k_ms = cuda_ms(kern, 3)
+        k_dev, k_host = device_host_ms(kern, 3)
         kf, kp, kv = kern()
         p_ms, (pf, pp, pv) = once_ms(
             lambda: ct.chain_scan_plain(qs, ss_, vs, **args))
@@ -414,7 +541,8 @@ def phase_chain(rng, stats):
         cb = bound(B * M * 25,
                    int(valid.sum()) * args["J"] * CHAIN_OPS_PER_PAIR)
         emit(dict(phase="chain", B=B, M=M, J=64, equal=err == 0,
-                  max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                  max_abs_err=err, kernel_ms=k_ms, kernel_device_ms=k_dev,
+                  kernel_host_ms=k_host, plain_ms=p_ms,
                   bound_ms=cb["bound_ms"], bound_by=cb["bound_by"],
                   kernel_seeds_s=B * M / k_ms * 1e3,
                   plain_seeds_s=B * M / p_ms * 1e3,
@@ -422,7 +550,8 @@ def phase_chain(rng, stats):
         if err:
             raise AssertionError(f"chain mismatch at M={M}")
         if M == 16384:
-            stats["chain"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+            stats["chain"] = dict(ms=k_ms, device_ms=k_dev, host_ms=k_host,
+                                  plain_ms=p_ms, max_abs_err=err,
                                   shape=f"B={B} M={M} J=64", **cb)
 
 
@@ -960,6 +1089,8 @@ def main() -> int:
                      "lesv_tpu/ops/chain_pallas.py:44"),
            "traceback": ("lesv_tpu_torch/csrc/traceback.cu",
                          "lesv_tpu/ops/align_jax.py:271")}
+    # the traceback at the shape `run` launches it at most, beside Q=4096
+    stats["traceback"]["other_shapes"] = [stats.pop("traceback_q256")]
     print(smi, flush=True)
     emit({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],

@@ -154,10 +154,13 @@ def test_fill_and_traceback_match_jax(name):
 
 
 @pytest.mark.parametrize("name", ["diag_w128", "full_w128_free_end",
-                                  "full_w65_odd"])
+                                  "full_w65_odd", "full_w4096_del",
+                                  "diag_w256_multi_row_tile"])
 def test_plain_traceback_matches_jax_traceback(name):
     """The plain traceback on the XLA kernel's direction bytes equals
-    align_jax.traceback_batch on the same bytes."""
+    align_jax.traceback_batch on the same bytes (among them long runs of
+    E steps along one row, full_w4096_del, and paths of thousands of
+    steps, diag_w256_multi_row_tile)."""
     import jax.numpy as jnp
 
     _, make, W, mode, free_end, shape, _ = _case(name)

@@ -9,6 +9,7 @@ import torch
 from lesv_tpu.config import ChainConfig
 from lesv_tpu_torch.config import ChainConfig as PortChainConfig
 from lesv_tpu_torch.ops import chain_torch
+from torch_cases import chain_edge_lanes
 
 # one intra-op thread: the suite runs several workers at once, and the
 # small CPU tensor ops of the plain versions gain nothing from more
@@ -69,6 +70,35 @@ def test_sort_and_scan_match_jax(seed):
         np.testing.assert_array_equal(got.numpy()[live],
                                       np.asarray(pal)[live])
     assert (tp.numpy() > 0).sum() > 100     # predecessors were taken
+
+
+@pytest.mark.parametrize("J", [32, 64, 128])
+def test_scan_edge_lanes_match_jax(J):
+    """Lanes of 0, 1, J-1, J, J+1 and 150 valid seeds, subject offsets near
+    2^32 - 2, tied predecessors: the sorts agree, and the plain scan equals
+    the XLA scan kernel and the Pallas kernel (interpret mode) on every
+    slot."""
+    import jax.numpy as jnp
+
+    from lesv_tpu.ops.chain_jax import _chain_scan_kernel, sort_seeds_device
+    from lesv_tpu.ops.chain_pallas import chain_scan_pallas
+
+    qoff, soff, valid = chain_edge_lanes(np.random.default_rng(J), J, 300)
+    soff = soff.astype(np.uint32)
+    jq, js, jv = sort_seeds_device(jnp.asarray(qoff), jnp.asarray(soff),
+                                   jnp.asarray(valid))
+    tq, ts, tv = chain_torch.sort_seeds_device(*_t(qoff, soff, valid))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    args = dict(J=J, length=15, max_dq=5000, max_dr=5000, bw=1500)
+    got = chain_torch.chain_scan_plain(tq, ts, tv, **args)
+    xla = _chain_scan_kernel(jq, js, jv, **args)
+    pal = chain_scan_pallas(jq, js, jv, interpret=True, **args)
+    for g, x, p in zip(got, xla, pal):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+    assert (got[1].numpy() > 0).sum() > 2 * J
 
 
 def _lanes_case():

@@ -18,6 +18,11 @@ from lesv_tpu_torch.index.kmer_index import KmerIndex
 from lesv_tpu_torch.io.seqstore import SeqStore
 from lesv_tpu_torch.sim import mutate_read, random_genome
 from lesv_tpu_torch.ops import align_torch, chain_torch
+from torch_cases import (
+    chain_edge_lanes,
+    traceback_edge_case,
+    unsorted_invalid_tail,
+)
 
 # one intra-op thread: the suite runs several workers at once, and the
 # small CPU tensor ops of the plain versions gain nothing from more
@@ -111,6 +116,60 @@ def test_fill_i16_kernel_equals_plain_and_i32_kernel(dev, Q, W, mode,
     assert kok.any()
 
 
+@pytest.mark.parametrize("W,mode,R", [
+    (65, "full", 300), (65, "diag", 300), (512, "diag", 300),
+    (4096, "full", 40), (8192, "full", 24), (8192, "diag", 24)])
+def test_traceback_kernel_equals_plain_on_edge_lanes(dev, W, mode, R):
+    """Random direction bytes through every exit of the walk: ok false,
+    a path that leaves the band, an end cell outside it, a lane that walks
+    until T runs out; 7 lanes, and T far longer than R + W + 2 (past the
+    kernel's shared-memory op buffer on the widest bands)."""
+    rng = np.random.default_rng(W + R)
+    B = 7
+    dirs, ei, eb, ok = (torch.from_numpy(a).to(dev)
+                        for a in traceback_edge_case(rng, B, R, W))
+    T = R + W + 2 + 9_001
+    got = align_torch.traceback_cuda(dirs, ei, eb, ok, W, mode, T)
+    want = align_torch.traceback_plain(dirs, ei, eb, ok, W, mode, T)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n = want[1].cpu()
+    assert n[0] == 0 and n[2] == 0
+    assert n[1] == (T if mode == "full" else 0)
+
+
+@pytest.mark.parametrize("mode", ["diag", "full"])
+def test_traceback_kernel_equals_plain_far_past_the_last_row(dev, mode):
+    """End rows up to 17,000 past R - 1: the walk steps in place on row
+    R - 1 (diag M steps, full F1 steps with their extension flag) for more
+    ops than the kernel's shared op buffer holds (16,384) before its row
+    index comes down.  Below row R - 1 each row has its own pattern of M
+    and F steps that leads to the origin, so a walk that left row R - 1
+    too early would read other bytes."""
+    B, R, W = 4, 40, 65
+    r, c = np.mgrid[0 : R - 1, 0:W]
+    turn = (7 * r + c) % 3 == 0
+    if mode == "diag":  # F steps (slot + 1) up to slot W/2, M steps else
+        rows = np.where(turn & (c < W // 2 - 1), 0x03, 0x00)
+        row_last, eb = 0x00, 10
+    else:  # M steps (slot - 1) keep the slot in 0..row, F steps else
+        rows = np.where((c == 0) | (turn & (c < r)), 0x03, 0x00)
+        row_last, eb = 0x23, 20
+    dirs = np.empty((B, R, W), np.uint8)
+    dirs[:, : R - 1] = rows
+    dirs[:, R - 1] = row_last
+    ei = (R - 1 + np.array([16_390, 17_000, 100, 0])).astype(np.int32)
+    T = 17_000 + R + W + 2
+    dirs, ei, eb, ok = (torch.from_numpy(a).to(dev) for a in (
+        dirs, ei, np.full(B, eb, np.int32), np.ones(B, bool)))
+    got = align_torch.traceback_cuda(dirs, ei, eb, ok, W, mode, T)
+    want = align_torch.traceback_plain(dirs, ei, eb, ok, W, mode, T)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(want[2].all())
+    assert want[1][1] > 17_000
+
+
 def test_fill_i16_kernel_refuses_a_closed_gate(dev):
     cfg = AlignConfig()
     q = torch.zeros((2, 4096), dtype=torch.uint8, device=dev)
@@ -134,6 +193,24 @@ def test_chain_kernel_equals_plain(dev, J):
     for a, b in zip(chain_torch.chain_scan_cuda(qs, ss, vs, **args),
                     chain_torch.chain_scan_plain(qs, ss, vs, **args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("J", [32, 64, 128])
+@pytest.mark.parametrize("M", [700, 1025])
+def test_chain_kernel_equals_plain_on_edge_lanes(dev, J, M):
+    """Lanes of 0, 1, J-1, J, J+1 and M/2 valid seeds near 2^32 - 2 with
+    tied predecessors, M not a multiple of the kernel's staging tile, and
+    one lane whose invalid tail holds unsorted non-sentinel offsets."""
+    rng = np.random.default_rng(J + M)
+    qs, ss, vs = chain_torch.sort_seeds_device(
+        *(torch.from_numpy(a).to(dev) for a in chain_edge_lanes(rng, J, M)))
+    unsorted_invalid_tail(rng, qs, ss, vs, lane=3)
+    args = dict(J=J, length=15, max_dq=5000, max_dr=5000, bw=1500)
+    got = chain_torch.chain_scan_cuda(qs, ss, vs, **args)
+    want = chain_torch.chain_scan_plain(qs, ss, vs, **args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (want[1] > 0).any()
 
 
 def _outputs_equal(got, want, qlen):
