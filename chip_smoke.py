@@ -16,11 +16,14 @@ Phases, each printing one JSON line:
    free_end) against its plain int16 version (every live direction byte,
    score, end cell, ok) and against the int32 kernel (score, end cell, ok
    and the ops of the traceback kernel), the traceback kernel against its
-   plain version on the int16 kernel's direction bytes (diag Q=256 W=512
-   is the shape `run` launches it at most), the traceback kernel on two
-   probes of made-up direction bytes (``TRACEBACK_PROBES``: a walk along
-   one row, a walk straight up a new row a step), and one shape outside
-   the gate, which must raise.  Exact equality (tolerance 0: all values
+   plain version on the int16 kernel's direction bytes, the traceback
+   kernel on two probes of made-up direction bytes (``TRACEBACK_PROBES``:
+   a walk along one row, a walk straight up a new row a step), the fill at
+   the largest buckets of phase run's fill launch histogram
+   (``FILL_HIST_SHAPES``: the int16 full-mode buckets of 1,024 and 256
+   lanes and the two widest int32 diag buckets, on inputs of their own
+   generator) against its plain version and, int16, against the int32
+   kernel, and one shape outside the gate, which must raise.  Exact equality (tolerance 0: all values
    are integers).  Each kernel is timed three ways: ``ms``, CUDA events
    around back-to-back calls (``cuda_ms``: the wrapper's host cost counts
    where it exceeds the kernel's); ``device_ms``, the same calls queued
@@ -57,13 +60,17 @@ Phases, each printing one JSON line:
    8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
    coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
    counts, launches per kernel for the map stage and for the stages after
-   it (every kernel must launch in both), recall and precision of the calls
+   it (every kernel must launch in both), the fill's launches by shape
+   (``_ext.FILL_SHAPES``: the eight largest keys, the eight largest buckets
+   summed over B, the four largest int32 buckets), recall and precision of
+   the calls
    against the planted truth (both at least 0.9), ``calls.vcf`` parsed
    back, and a second call with ``resume=True`` that returns the same calls
    without launching a kernel.
 
 Then the card's ``nvidia-smi`` line, the kernel table (the traceback at
-diag Q=4096 W=512 with diag Q=256 W=512 under ``other_shapes``) and
+diag Q=4096 W=512 with diag Q=256 W=512 under ``other_shapes``, each fill
+with its histogram buckets under ``other_shapes``) and
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
 
 Bounds in the kernel table: ``bound_ms`` is the larger of the bytes the
@@ -256,6 +263,50 @@ def fill_case(rng, kind: str):
     return q, s, qlen, slen, W, mode, fe
 
 
+# the largest buckets of the fill launch histogram of phase run
+# (``fill_buckets``), as (state type, mode, free_end, Qmax, W, B): B is the
+# bucket's lane count (``align_batch._lanes_for``)
+FILL_HIST_SHAPES = [("i16", "full", False, 64, 64, 1024),
+                    ("i16", "full", False, 128, 128, 1024),
+                    ("i16", "full", False, 256, 256, 256),
+                    ("i32", "diag", False, 4096, 2048, 8),
+                    ("i32", "diag", False, 2048, 1024, 64)]
+
+
+def hist_case(rng, shape):
+    """(q, s, qlen, slen, W, mode, free_end) numpy batch of one bucket of
+    the histogram: B lanes of query lengths in (Qmax/2, Qmax], subjects of
+    a length the bucketing puts in this band (full: W/2 to W - 1; diag:
+    about the query's), reads at 10% error; free_end lanes end in 20%
+    random bases."""
+    import numpy as np
+
+    from lesv_tpu_torch.sim import mutate_read
+
+    _, mode, fe, Q, W, B = shape
+    S = W if mode == "full" else Q + W
+    q = np.zeros((B, Q), np.uint8)
+    s = np.zeros((B, S), np.uint8)
+    qlen = np.zeros(B, np.int32)
+    slen = np.zeros(B, np.int32)
+    for i in range(B):
+        if mode == "full":
+            ls = int(rng.integers(W // 2, W))
+        else:
+            ls = int(rng.integers(Q // 2 + 1, Q + 1))
+        si = rng.integers(0, 4, ls).astype(np.uint8)
+        qi = mutate_read(rng, si, err=0.1)
+        if fe:
+            cut = int(0.8 * len(qi))
+            qi = np.concatenate([qi[:cut], rng.integers(0, 4, len(qi) - cut)
+                                 .astype(np.uint8)])
+        qi = qi[: Q] if len(qi) > Q // 2 else np.resize(qi, Q // 2 + 1)
+        q[i, : len(qi)] = qi
+        s[i, :ls] = si[:S]
+        qlen[i], slen[i] = len(qi), min(ls, S)
+    return q, s, qlen, slen, W, mode, fe
+
+
 def fill_bound(qln, sln, W, ops_s: float = INT32_OPS_S) -> dict:
     """Least time of one fill: q and s read once, one direction byte per
     cell of the rows 0..qlen written once, the 13 bytes of results per
@@ -305,6 +356,62 @@ def traceback_probe(name: str, dev):
     end_b = torch.full((B,), eb, dtype=torch.int32, device=dev)
     ok = torch.ones(B, dtype=torch.bool, device=dev)
     return dirs, end_i, end_b, ok, W, mode, R + W + 2
+
+
+def fill_hist_cases(stats, cfg, dev):
+    """The fill kernel at the largest buckets of `run`'s launch histogram
+    (``FILL_HIST_SHAPES``) against its plain version, int16 also against
+    the int32 kernel; on inputs of their own generator, so that the world
+    of the later phases stays as it was."""
+    import numpy as np
+    import torch
+
+    from lesv_tpu_torch.ops import align_torch as at
+
+    hrng = np.random.default_rng(1)
+    for shape in FILL_HIST_SHAPES:
+        qn, sn, qln, sln, W, mode, fe = hist_case(hrng, shape)
+        q, s, ql, sl = (torch.from_numpy(x).to(dev)
+                        for x in (qn, sn, qln, sln))
+        i16 = shape[0] == "i16"
+        B, Q = q.shape
+        if i16 != at.i16_ok(Q, W, cfg):
+            raise AssertionError(f"{shape}: the int16 gate disagrees")
+
+        def kern():
+            return at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=i16)
+
+        k_ms = cuda_ms(kern, 5)
+        k_dev, k_host = device_host_ms(kern, 5)
+        kout = kern()
+        p_ms, pout = once_ms(lambda: at.banded_align_kernel(
+            q, s, ql, sl, W, mode, cfg, fe, i16=i16))
+        eq, dirs_eq, err = _fill_outputs_equal(kout, pout, ql, dirs=True)
+        eq32 = ops_eq = True
+        if i16:
+            # int16 against the int32 kernel: score, end cell, ok, ops
+            wout = at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=False)
+            eq32, _, err32 = _fill_outputs_equal(kout, wout, ql, dirs=False)
+            err = max(err, err32)
+            T = Q + 1 + W + 2
+            ops_eq = all(torch.equal(a, b) for a, b in zip(
+                at.traceback_cuda(kout[0], kout[2], kout[3], kout[4], W,
+                                  mode, T),
+                at.traceback_cuda(wout[0], wout[2], wout[3], wout[4], W,
+                                  mode, T)))
+        fb = fill_bound(qln, sln, W, INT16_OPS_S if i16 else INT32_OPS_S)
+        name = "fill_i16" if i16 else "fill"
+        row = dict(ms=k_ms, device_ms=k_dev, host_ms=k_host, plain_ms=p_ms,
+                   max_abs_err=err,
+                   shape=f"{mode}{' free_end' if fe else ''} B={B} Q={Q} "
+                         f"W={W}", **fb)
+        emit(dict(phase="fill", kernel=name, case="histogram", equal=eq,
+                  dirs_equal=dirs_eq, equal_i32_kernel=eq32,
+                  ops_equal_i32_kernel=ops_eq,
+                  kernel_gcells_s=int(qln.sum()) * W / k_ms / 1e6, **row))
+        if not (eq and eq32 and ops_eq):
+            raise AssertionError(f"fill mismatch at histogram shape {shape}")
+        stats.setdefault(f"{name}_hist", []).append(row)
 
 
 def phase_fill(rng, stats):
@@ -449,11 +556,13 @@ def phase_fill(rng, stats):
                                      max_abs_err=max(err, err32),
                                      i32_kernel_ms=k32_ms,
                                      shape=f"diag B={B} Q={Q} W={W}", **fb)
-            # the traceback at the shape `run` launches it at most
+            # the traceback after the int16 fills of the table shape
             stats["traceback_q256"] = dict(
                 ms=t_ms, device_ms=t_dev, host_ms=t_host, plain_ms=tp_ms,
                 max_abs_err=0,
                 shape=f"diag B={B} R={Q + 1} W={W} T={T}", **tbb)
+
+    fill_hist_cases(stats, cfg, dev)
 
     for name in TRACEBACK_PROBES:
         d, ei, eb, ok, W, mode, T = traceback_probe(name, dev)
@@ -943,6 +1052,30 @@ def score_calls(calls, svs):
     return recall, precision, missed, false
 
 
+def fill_histogram(shapes: dict, n: int = 8) -> list:
+    """The ``n`` largest entries of a fill launch histogram
+    (``_ext.FILL_SHAPES``), as [state type, mode, free_end, Qmax, W, B,
+    launches]."""
+    top = sorted(shapes.items(), key=lambda kv: (-kv[1], kv[0]))[:n]
+    return [[*k, v] for k, v in top]
+
+
+def fill_buckets(shapes: dict, n: int = 8, state: str | None = None) -> list:
+    """The same histogram summed over B: the ``n`` largest buckets (of one
+    state type, or of both) as [state type, mode, free_end, Qmax, W,
+    launches, lanes, largest B]."""
+    acc: dict = {}
+    for k, v in shapes.items():
+        if state and k[0] != state:
+            continue
+        a = acc.setdefault(k[:5], [0, 0, 0])
+        a[0] += v
+        a[1] += v * k[5]
+        a[2] = max(a[2], k[5])
+    top = sorted(acc.items(), key=lambda kv: (-kv[1][0], kv[0]))[:n]
+    return [[*k, *v] for k, v in top]
+
+
 def phase_run(rng):
     import torch
 
@@ -969,10 +1102,12 @@ def phase_run(rng):
     # the launch counts of the map stage are read, and set back to 0, at
     # the moment the stage after it starts
     at_map_end: dict = {}
+    shapes_map: dict = {}
     select_sv_reads = driver.select_sv_reads
 
     def first_stage_after_map(*a, **kw):
         at_map_end.update(_ext.LAUNCHES)
+        shapes_map.update(_ext.FILL_SHAPES)
         _ext.reset_launches()
         return select_sv_reads(*a, **kw)
 
@@ -991,6 +1126,9 @@ def phase_run(rng):
     finally:
         driver.select_sv_reads = select_sv_reads
     after_map = dict(_ext.LAUNCHES)
+    shapes = dict(shapes_map)
+    for k, v in _ext.FILL_SHAPES.items():
+        shapes[k] = shapes.get(k, 0) + v
     recall, precision, missed, false = score_calls(res.calls, truth.svs)
     spans = sorted(profiling.report().items(),
                    key=lambda kv: -kv[1]["total_s"])[:16]
@@ -1020,6 +1158,10 @@ def phase_run(rng):
               stage_s=res.timings, records=res.stats,
               launches_map_stage=at_map_end,
               launches_after_map=after_map,
+              fill_shapes_top8=fill_histogram(shapes),
+              fill_buckets_top8=fill_buckets(shapes),
+              fill_buckets_i32_top4=fill_buckets(shapes, 4, "i32"),
+              fill_shape_keys=len(shapes),
               fills=dict(align_batch.FILL_STATS),
               peak_device_bytes=torch.cuda.max_memory_allocated(),
               calls=len(res.calls), recall=recall, precision=precision,
@@ -1089,8 +1231,11 @@ def main() -> int:
                      "lesv_tpu/ops/chain_pallas.py:44"),
            "traceback": ("lesv_tpu_torch/csrc/traceback.cu",
                          "lesv_tpu/ops/align_jax.py:271")}
-    # the traceback at the shape `run` launches it at most, beside Q=4096
+    # the traceback after the int16 fills, beside Q=4096
     stats["traceback"]["other_shapes"] = [stats.pop("traceback_q256")]
+    # the fills at the largest buckets of `run`'s launch histogram
+    for k in ("fill", "fill_i16"):
+        stats[k]["other_shapes"] = stats.pop(f"{k}_hist")
     print(smi, flush=True)
     emit({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],

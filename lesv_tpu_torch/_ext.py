@@ -11,12 +11,13 @@ Every C entry point launches on the current device, on the stream it is
 given, and returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code.  A wrapper launches under :func:`on_device_of`, which makes
 its tensors' device current (the sources hold no per-process state, and
-``fill.cu`` opts in to its dynamic shared memory on every launch, so any
-card of the host can be addressed).
+``fill.cu``'s wide-band design opts in to its dynamic shared memory on
+every launch, so any card of the host can be addressed).
 
 ``LAUNCHES`` holds one plain integer per kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels.  ``FILL_SHAPES`` counts the fill's launches
+by shape, keyed ``(state type, mode, free_end, Qmax, W, B)``, beside it.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # csrc/fill.cu holds two kernels (int32 and int16 state), counted apart
 LAUNCHES: dict[str, int] = {k: 0 for k in (*KERNELS, "fill_i16")}
+FILL_SHAPES: dict[tuple, int] = {}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,6 +50,7 @@ I = ctypes.c_int
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FILL_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -101,9 +104,11 @@ def build(names=KERNELS) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
 
 
-def function(kernel: str, symbol: str, argtypes: list):
+def function(kernel: str, symbol: str, argtypes: list,
+             restype=ctypes.c_int):
     """The C entry point ``symbol`` of ``csrc/<kernel>.cu`` (built and
-    loaded on first use), returning an int CUDA error code."""
+    loaded on first use), returning ``restype`` (an int CUDA error code
+    unless said otherwise)."""
     key = f"{kernel}:{symbol}"
     fn = _funcs.get(key)
     if fn is not None:
@@ -114,7 +119,7 @@ def function(kernel: str, symbol: str, argtypes: list):
             _libs[kernel] = ctypes.CDLL(_so_path(kernel))
         fn = getattr(_libs[kernel], symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _funcs[key] = fn
     return fn
 

@@ -21,6 +21,8 @@ the kernel's output (the traceback never reads them).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -30,8 +32,8 @@ from lesv_tpu_torch import _ext
 NEG = -(2**28)
 NEG16 = -16384          # int16 sentinel (see i16_ok for the bound proof)
 OP_M, OP_I, OP_D, OP_PAD = 0, 1, 2, 255
-# row state above this many bytes per lane goes to a global scratch
-# buffer instead of shared memory
+# row state of the fill's wide-band design above this many bytes per lane
+# goes to a global scratch buffer instead of shared memory
 SMEM_CAP = 200 * 1024
 
 
@@ -244,12 +246,6 @@ def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
     return dirs, score, end_i, end_b, ok
 
 
-def fill_state_bytes(W: int, free_end: bool, i16: bool) -> int:
-    """Row state of one lane in bytes: 6 (8 with free_end) arrays of W
-    values of the state type and W flag bytes, rounded up to 4."""
-    return ((8 if free_end else 6) * W * (2 if i16 else 4) + W + 3) // 4 * 4
-
-
 def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
               free_end: bool = False, i16: bool = False):
     """The fill kernel (``csrc/fill.cu``) on CUDA tensors, with int32 or
@@ -274,11 +270,14 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
     end_i = torch.empty_like(score)
     end_b = torch.empty_like(score)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    state = fill_state_bytes(W, free_end, i16)
+    P, I = _ext.P, _ext.I
+    # row state per lane: 0 where the kernel keeps it in registers
+    state = _ext.function("fill", "lesv_fill_state_bytes", [I, I, I],
+                          ctypes.c_longlong)(W, int(free_end),
+                                             2 if i16 else 4)
     scratch = None
     if state > SMEM_CAP:
         scratch = torch.empty(B * state, dtype=torch.uint8, device=dev)
-    P, I = _ext.P, _ext.I
     fn = _ext.function("fill", "lesv_fill",
                        [P, P, P, P] + [I] * 13 + [P] * 7)
     with on_dev:
@@ -291,6 +290,8 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
                  end_b.data_ptr(), ok.data_ptr(), _ext.stream_of(q))
     _ext.check(err, "lesv_fill")
     _ext.LAUNCHES["fill_i16" if i16 else "fill"] += 1
+    key = ("i16" if i16 else "i32", mode, bool(free_end), Qmax, W, B)
+    _ext.FILL_SHAPES[key] = _ext.FILL_SHAPES.get(key, 0) + 1
     return dirs, score, end_i, end_b, ok.bool()
 
 

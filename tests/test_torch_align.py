@@ -63,6 +63,21 @@ def _pairs_odd(rng):
     return pairs
 
 
+def _pairs_short_lanes(rng, lo, hi, W):
+    """Reads of lo to hi bases against their sources; lanes 0 and 1 have
+    query lengths 0 and 1, lane 2 a subject shorter than W/2."""
+    pairs = []
+    for k in range(8):
+        s = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
+        q = mutate_read(rng, s, err=0.15)
+        if k < 2:
+            q = q[:k]
+        if k == 2:
+            s = s[: W // 3]
+        pairs.append((q, s))
+    return pairs
+
+
 def _pairs_long(rng, lo, hi, err, cap=None):
     pairs = []
     for _ in range(8):
@@ -81,6 +96,16 @@ CASES = [
     ("full_w128_free_end", _pairs_w128, 128, "full", True, None, True),
     ("full_w4096_del", _pairs_del, 4096, "full", False, (128, 4096), False),
     ("full_w65_odd", _pairs_odd, 65, "full", False, (64, 64), True),
+    ("full_w65_odd_free_end", _pairs_odd, 65, "full", True, (64, 64), True),
+    ("diag_w33_short_lanes", lambda r: _pairs_short_lanes(r, 20, 90, 33),
+     33, "diag", False, None, True),
+    ("full_w33_short_lanes_free_end",
+     lambda r: _pairs_short_lanes(r, 10, 32, 33), 33, "full", True,
+     (40, 33), True),
+    ("diag_w513_short_lanes", lambda r: _pairs_short_lanes(r, 150, 300, 513),
+     513, "diag", False, None, True),
+    ("full_w513_free_end", lambda r: _pairs_short_lanes(r, 200, 300, 513),
+     513, "full", True, (320, 513), True),
     ("diag_w256_multi_row_tile",
      lambda r: _pairs_long(r, 1500, 2500, 0.12), 256, "diag", False, None,
      True),

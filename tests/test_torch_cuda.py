@@ -39,10 +39,18 @@ def dev():
 
 
 def _fill_batch(rng, W, mode, B=16, lo=200, hi=600, Q=None):
+    """B lanes of a read against its source; from B = 8 on, lanes 0 to 3
+    are the edges: query length 0, query length 1, subject length 0, and a
+    subject shorter than W/2 (in global diag mode its end slot falls
+    outside the band)."""
     pairs = []
-    for _ in range(B):
+    for k in range(B):
         s = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
-        pairs.append((mutate_read(rng, s, err=0.12)[:Q], s))
+        q = mutate_read(rng, s, err=0.12)[:Q]
+        if B >= 8 and k < 4:
+            q, s = ((q[:0], s), (q[:1], s), (q, s[:0]),
+                    (q, s[: max(1, W // 4)]))[k]
+        pairs.append((q, s))
     Q = Q or max(len(q) for q, _ in pairs)
     S = Q + W if mode == "diag" else W
     q = np.zeros((B, Q), np.uint8)
@@ -55,23 +63,43 @@ def _fill_batch(rng, W, mode, B=16, lo=200, hi=600, Q=None):
     return q, s, qlen, slen
 
 
-@pytest.mark.parametrize("W,mode,free_end", [
-    (128, "diag", False), (256, "diag", True), (1024, "full", False),
-    (65, "full", True), (8192, "full", False)])
-def test_fill_and_traceback_kernels_equal_plain(dev, W, mode, free_end):
-    rng = np.random.default_rng(W)
+# the fill's register design changes its warps and slots a lane at W =
+# 64, 128, 256, 512 and 1,024 and gives way to the wide design above
+# 2,048; W = 33, 65, 96, 511, 513, 1,025 and 2,049 leave slots idle or
+# runs ragged
+_EDGE_W = (33, 64, 65, 96, 511, 512, 513, 1025, 2048, 2049)
+
+
+@pytest.mark.parametrize("W,mode,free_end,B", [
+    (128, "diag", False, 16), (256, "diag", True, 16),
+    (1024, "full", False, 16), (65, "full", True, 16),
+    (8192, "full", False, 16)] + [
+    (W, mode, fe, 16) for W in _EDGE_W for mode in ("diag", "full")
+    for fe in (False, True)] + [
+    (65, "full", False, 1), (512, "diag", True, 5), (96, "diag", False, 7),
+    (2048, "full", True, 3), (4096, "diag", True, 4)])
+def test_fill_and_traceback_kernels_equal_plain(dev, W, mode, free_end, B):
+    """The int32 kernel against its plain version (every live direction
+    byte, score, end cell, ok) and the traceback kernel on its bytes; where
+    the int16 gate holds, the int16 kernel against its plain version too."""
+    rng = np.random.default_rng(W + B)
     cfg = AlignConfig()
     q, s, qlen, slen = (torch.from_numpy(a).to(dev)
-                        for a in _fill_batch(rng, W, mode))
-    kd, ks, kei, keb, kok = align_torch.fill_cuda(q, s, qlen, slen, W, mode,
-                                                  cfg, free_end)
-    pd, ps, pei, peb, pok = align_torch.banded_align_kernel(
-        q, s, qlen, slen, W, mode, cfg, free_end)
-    for a, b in ((ks, ps), (kei, pei), (keb, peb), (kok, pok)):
-        assert torch.equal(a, b)
+                        for a in _fill_batch(rng, W, mode, B=B))
     live = (torch.arange(q.shape[1] + 1, device=dev)[None, :, None]
             <= qlen[:, None, None])
-    assert not torch.where(live, kd != pd, False).any()
+    for i16 in (False, True):
+        if i16 and not align_torch.i16_ok(q.shape[1], W, cfg):
+            continue
+        kd, ks, kei, keb, kok = align_torch.fill_cuda(
+            q, s, qlen, slen, W, mode, cfg, free_end, i16=i16)
+        pd, ps, pei, peb, pok = align_torch.banded_align_kernel(
+            q, s, qlen, slen, W, mode, cfg, free_end, i16=i16)
+        for a, b in ((ks, ps), (kei, pei), (keb, peb), (kok, pok)):
+            assert torch.equal(a, b)
+        assert not torch.where(live, kd != pd, False).any()
+    kd, ks, kei, keb, kok = align_torch.fill_cuda(q, s, qlen, slen, W, mode,
+                                                  cfg, free_end)
     T = q.shape[1] + 1 + W + 2
     kt = align_torch.traceback_cuda(kd, kei, keb, kok, W, mode, T)
     pt = align_torch.traceback_plain(kd, kei, keb, kok, W, mode, T)
@@ -81,12 +109,23 @@ def test_fill_and_traceback_kernels_equal_plain(dev, W, mode, free_end):
 
 @pytest.mark.parametrize("Q,W,mode,free_end,B", [
     (64, 65, "full", False, 128), (256, 512, "diag", False, 32),
-    (256, 128, "diag", True, 32), (1024, 256, "diag", False, 16)])
+    (256, 128, "diag", True, 32), (1024, 256, "diag", False, 16),
+    # edges of the designs: idle slots, ragged runs, the wide design
+    (64, 33, "diag", True, 9), (80, 65, "full", True, 16),
+    (100, 96, "diag", False, 5), (300, 511, "full", True, 16),
+    (256, 513, "diag", True, 16), (256, 1024, "full", True, 8),
+    (256, 1025, "full", False, 8), (256, 1025, "diag", True, 8),
+    (128, 64, "diag", False, 1),
+    # the largest buckets of the fill launch histogram of `run`
+    (64, 64, "full", False, 1024), (128, 128, "full", False, 1024),
+    (256, 256, "full", False, 256), (512, 256, "diag", False, 256),
+    (1024, 512, "diag", False, 64)])
 def test_fill_i16_kernel_equals_plain_and_i32_kernel(dev, Q, W, mode,
                                                      free_end, B):
     """The int16 kernel: every live direction byte, score, end cell and
     ok equal its plain int16 version; score, end cell, ok and the ops of
-    the traceback kernel equal the int32 kernel's."""
+    the traceback kernel equal the int32 kernel's.  Lanes 0 to 3 of a batch
+    of 8 or more are the edges of ``_fill_batch``."""
     rng = np.random.default_rng(Q + W)
     cfg = AlignConfig()
     assert align_torch.i16_ok(Q, W, cfg)

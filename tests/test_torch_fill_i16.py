@@ -42,13 +42,15 @@ def _batch(pairs, Qmax, Smax):
     return q, s, qlen, slen
 
 
-def _pairs(rng, n, lo, hi, err, cap=None, trunc=None):
+def _pairs(rng, n, lo, hi, err, cap=None, trunc=None, short=False):
     pairs = []
     for k in range(n):
         s = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
         q = mutate_read(rng, s, err=err)
         if k == trunc:      # truncated query: free_end stops early
             q = q[: len(q) // 2]
+        if short and k < 2:  # query lengths 0 and 1
+            q = q[:k]
         pairs.append((q[:cap] if cap else q, s))
     return pairs
 
@@ -66,6 +68,16 @@ CASES = {
     "full_q128_w128_free_end": (
         lambda r: _pairs(r, 8, 40, 120, 0.15, trunc=3),
         128, 128, 128, "full", True),
+    # the edges of the CUDA kernel's designs: idle slots (W = 33), the
+    # wide design past W = 512 with free_end, lanes of query length 0 / 1
+    "diag_q96_w33_short_lanes": (
+        lambda r: _pairs(r, 8, 20, 90, 0.12, cap=96, short=True),
+        96, 96 + 33, 33, "diag", False),
+    "full_q300_w513_free_end": (
+        lambda r: _pairs(r, 8, 200, 300, 0.1, cap=300, trunc=2, short=True),
+        300, 513, 513, "full", True),
+    "full_q64_w65_free_end": (lambda r: _pairs(r, 8, 20, 64, 0.2, cap=64),
+                              64, 64, 65, "full", True),
     "diag_q1024_w256_deep_scores": (
         lambda r: _pairs(r, 8, 900, 1024, 0.35, cap=1024),
         1024, 1024 + 256, 256, "diag", False),

@@ -1,17 +1,22 @@
-"""Time the traceback and chain-scan kernels of two checkouts of the port in
-turns on one CUDA card.
+"""Time the fill, traceback and chain-scan kernels of two checkouts of the
+port in turns on one CUDA card.
 
     python3 tools/torch_kernel_ab.py --trees build/parent .
 
 Runs one process per turn, in the order A, B, B, A (A and B the two trees);
 each process builds that tree's kernels (into its own ``build/kernels/``),
-makes the same inputs from seed 0 with ``fill_case``, ``traceback_probe``
-and ``chain_case`` of this checkout's ``chip_smoke.py``, and times each
+makes the same inputs from seed 0 with ``fill_case``, ``hist_case``,
+``traceback_probe`` and ``chain_case`` of this checkout's
+``chip_smoke.py``, and times each
 case three ways, over ``REPS`` calls each, with its ``cuda_ms`` (``_ms``:
 events around back-to-back calls) and ``device_host_ms`` (``_device_ms``:
 calls queued behind a sleeping kernel; ``_host_ms``: the host clock to
 issue a call meanwhile, the host cost alone):
 
+* the fill (``fill_cuda``), int32 at diag B=256 Q=4096 W=512 and int16 at
+  diag B=256 Q=256 W=512, and at each bucket of
+  ``chip_smoke.FILL_HIST_SHAPES`` (the largest of the fill launch
+  histogram of ``chip_smoke.py``'s phase run) in its state type;
 * the traceback on the int32 fill's direction bytes at diag B=256 Q=4096
   W=512 (T=4611) and on the int16 fill's at diag B=256 Q=256 W=512 (T=771);
 * the traceback's C entry point alone at Q=256 (outputs allocated once,
@@ -88,12 +93,27 @@ def _turn(tree: str) -> dict:
         out[f"{name}_device_ms"], out[f"{name}_host_ms"] = (
             cs.device_host_ms(fn, REPS))
 
-    for kind, i16 in (("diag_W512", False), ("i16_diag_Q256_W512", True)):
-        qn, sn, qln, sln, W, mode, fe = cs.fill_case(rng, kind)
+    def fill(name, case, i16):
+        """Time one fill and keep its checksums: live direction bytes,
+        score, end cell and ok."""
+        qn, sn, qln, sln, W, mode, fe = case
         q, s, ql, sl = (torch.from_numpy(x).to(dev)
                         for x in (qn, sn, qln, sln))
-        d, _, ei, eb, ok = at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe,
-                                        i16=i16)
+        timed(name, lambda: at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe,
+                                         i16=i16))
+        res = at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=i16)
+        live = (torch.arange(res[0].shape[1], device=dev)[None, :, None]
+                <= ql[:, None, None])
+        out[f"{name}_sum"] = [int(torch.where(live, res[0], 0).long().sum())
+                              ] + [int(x.long().sum()) for x in res[1:]]
+        return q, res
+
+    for kind, i16 in (("diag_W512", False), ("i16_diag_Q256_W512", True)):
+        case = cs.fill_case(rng, kind)
+        q, (d, _, ei, eb, ok) = fill(
+            f"fill_{'i16' if i16 else 'i32'}_{case[5]}_Q{case[0].shape[1]}"
+            f"_W{case[4]}", case, i16)
+        W, mode = case[4], case[5]
         T = q.shape[1] + 1 + W + 2
         name = f"traceback_Q{q.shape[1]}"
         timed(name, lambda: at.traceback_cuda(d, ei, eb, ok, W, mode, T))
@@ -102,6 +122,10 @@ def _turn(tree: str) -> dict:
                               int(r.sum())]
         if i16:
             timed(f"{name}_launcher", _launcher(d, ei, eb, ok, W, mode, T))
+    for shape in cs.FILL_HIST_SHAPES:
+        st, mode, fe, Q, W, B = shape
+        fill(f"fill_{st}_{mode}{'_fe' if fe else ''}_Q{Q}_W{W}_B{B}",
+             cs.hist_case(rng, shape), st == "i16")
     for probe in cs.TRACEBACK_PROBES:
         d, ei, eb, ok, W, mode, T = cs.traceback_probe(probe, dev)
         timed(f"traceback_{probe}",
