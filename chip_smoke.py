@@ -48,14 +48,24 @@ Phases, each printing one JSON line:
    outputs and against a mesh of one card; then the map configuration of
    phase ``map`` again under ``use_mesh``: the M4 records must equal phase
    ``map``'s and every kernel must launch under the mesh;
-7. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
+7. ``overlap``: 2,048 reads (four production batches; ``OVERLAP_READS``)
+   mapped against phase ``map``'s reference and index in turns serial (S:
+   one dispatch worker, one batch at a time, as the tests patch it) and
+   overlapped (O: the defaults on a card, 8 dispatch workers and 2
+   batches in flight, each worker on CUDA streams of its own): S, O, S, O,
+   the second S and O under ``torch.profiler`` for the card's busy share
+   (summed kernel time, and the union of kernel, copy and memset
+   intervals, over the arm's wall time).  Every arm prints its wall
+   seconds, bases/s and peak device memory, and must give the same M4
+   records, launches per kernel, fill launches per shape and fills;
+8. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
    reference with 5 DEL + 5 INS planted and reads at coverage 10, once
    with ``LocalExchange`` in this process and once as two spawned
    processes joined by ``TorchExchange`` over gloo (a ``file://``
    rendezvous under ``build/smoke_dist``), both on the cards present: the call
    lists must be equal field for field, on every rank.  A rank that fails
    or outlasts ``DIST_JOIN_S`` fails the phase;
-8. ``run``: reads to a VCF through
+9. ``run``: reads to a VCF through
    ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on an
    8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
    coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
@@ -66,7 +76,12 @@ Phases, each printing one JSON line:
    the calls
    against the planted truth (both at least 0.9), ``calls.vcf`` parsed
    back, and a second call with ``resume=True`` that returns the same calls
-   without launching a kernel.
+   without launching a kernel.  The run is overlapped (the default); then
+   the stages after map run again serially into their own directory from
+   the overlapped run's map checkpoint, and ``calls.vcf``,
+   ``remapped.sam``, every stage ``.npz``, the launches and the fill
+   shapes after map must be equal.  Host-clock spans sum over the worker
+   threads, so a span's total can exceed the wall time.
 
 Then the card's ``nvidia-smi`` line, the kernel table (the traceback at
 diag Q=4096 W=512 with diag Q=256 W=512 under ``other_shapes``, each fill
@@ -89,6 +104,7 @@ is null.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -107,6 +123,9 @@ RUN_N_SV = 10               # of each kind, DEL and INS
 DIST_GENOME_BP = 4_000_000
 DIST_N_SV = 5
 DIST_JOIN_S = 600           # a rank still alive after this is killed
+OVERLAP_READS = 2_048       # four production batches of 512
+SPANS_NOTE = ("span totals sum over the worker threads, so a total can "
+              "exceed the wall time")
 
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 67e12 / 4
@@ -716,7 +735,8 @@ def phase_map(rng):
               index_device_bytes=idx_bytes,
               peak_device_bytes=torch.cuda.max_memory_allocated(),
               launches=launches, fills=fills,
-              host_clock_spans={k: v["total_s"] for k, v in spans}))
+              host_clock_spans={k: v["total_s"] for k, v in spans},
+              spans_note=SPANS_NOTE))
     _require_launched(launches, "on the map path")
     for m in m4s:
         if not (0 <= m.qoff < m.qend <= m.qsize
@@ -746,7 +766,7 @@ def phase_map(rng):
     if got != want:
         raise AssertionError("M4 records differ from the host engine")
     return launches, dict(reads=reads, store=store, index=index, cfg=cfg,
-                          m4s=m4s, bases=bases)
+                          m4s=m4s, bases=bases, donor=donor)
 
 
 def sync_all() -> None:
@@ -915,6 +935,133 @@ def phase_mesh(rng, world):
         raise AssertionError("M4 records under the mesh, of phase map and "
                              "on card 0 differ")
     return {k: launches[k] + under_mesh[k] for k in launches}
+
+
+@contextlib.contextmanager
+def serial_workers():
+    """The serial arm: one dispatch worker and one map batch at a time (the
+    worker counts the tests patch the same way)."""
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.pipeline import mapper
+
+    saved = align_batch._n_dispatch_workers, mapper._map_overlap_depth
+    align_batch._n_dispatch_workers = lambda device: 1
+    mapper._map_overlap_depth = lambda device: 1
+    try:
+        yield
+    finally:
+        align_batch._n_dispatch_workers, mapper._map_overlap_depth = saved
+
+
+def busy_time(fn):
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity); returns
+    (its result, wall seconds, summed kernel seconds, seconds in which the
+    card ran a kernel, copy or memset: the union of their intervals over
+    every stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(REPO, "build", "smoke_overlap_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    kernel_us = sum(e["dur"] for e in events
+                    if e.get("cat") == "kernel" and "dur" in e)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return out, wall, kernel_us * 1e-6, busy_us * 1e-6
+
+
+def _m4_key(m):
+    return (m.qid, m.qdir, m.sid, m.qoff, m.qend, m.qsize, m.soff, m.send,
+            m.ssize, m.score, m.dist, round(m.ident_perc, 9),
+            m.ops.tobytes())
+
+
+def phase_overlap(world):
+    """Map ``OVERLAP_READS`` reads (four production batches) against phase
+    map's reference and index, in turns serial (S: one dispatch worker,
+    one batch at a time) and overlapped (O: the defaults, 8 dispatch
+    workers and 2 batches in flight, a CUDA stream each): S, O, S, O, the
+    second S and O traced for the card's busy share.  Every arm must give
+    the same M4 records, launches per kernel, fill launches per shape and
+    fills.  Returns the launches of the first overlapped arm."""
+    import numpy as np
+    import torch
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.pipeline.mapper import map_all
+    from lesv_tpu_torch.sim import simulate_reads
+
+    # coverage 0.45 of 64 Mb: about 2,400 reads of mean 12 kb, so that
+    # the first 2,048 are always there
+    rng = np.random.default_rng(7)
+    reads = simulate_reads(rng, world["donor"], coverage=0.45,
+                           mean_len=12_000, err=0.1)[:OVERLAP_READS]
+    if len(reads) != OVERLAP_READS:
+        raise AssertionError(f"only {len(reads)} reads simulated")
+    bases = sum(len(r) for _, r in reads)
+    store, index, cfg = world["store"], world["index"], world["cfg"]
+
+    def map_arm():
+        return map_all(reads, store, index, cfg, device="cuda")[0]
+
+    arms = []
+    for kind in ("S", "O", "S_traced", "O_traced"):
+        _ext.reset_launches()
+        align_batch.reset_fill_stats()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = serial_workers() if kind[0] == "S" else contextlib.nullcontext()
+        with ctx:
+            if kind.endswith("traced"):
+                m4s, wall, kernel_s, busy_s = busy_time(map_arm)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m4s = map_arm()
+                torch.cuda.synchronize()
+                wall, kernel_s, busy_s = time.perf_counter() - t0, None, None
+        arm = dict(arm=kind, wall_s=wall, bases_per_s=bases / wall,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   m4=len(m4s), launches=dict(_ext.LAUNCHES),
+                   fill_shape_keys=len(_ext.FILL_SHAPES),
+                   fills=dict(align_batch.FILL_STATS))
+        if kernel_s is not None:
+            arm.update(kernel_s=kernel_s, busy_s=busy_s,
+                       kernel_share=kernel_s / wall, busy_share=busy_s / wall)
+        emit(dict(phase="overlap", reads=len(reads), read_bases=bases, **arm))
+        arms.append((arm, [_m4_key(m) for m in m4s], dict(_ext.FILL_SHAPES)))
+    first = arms[0]
+    for arm, keys, shapes in arms[1:]:
+        if keys != first[1]:
+            raise AssertionError(f"arm {arm['arm']}: M4 records differ from "
+                                 "the first serial arm's")
+        if (arm["launches"], shapes, arm["fills"]) != (
+                first[0]["launches"], first[2], first[0]["fills"]):
+            raise AssertionError(f"arm {arm['arm']}: launches, fill shapes "
+                                 "or fills differ from the first serial "
+                                 "arm's")
+    _require_launched(first[0]["launches"], "by the map of phase overlap")
+    mean = lambda kind: sum(a["wall_s"] for a, _, _ in arms
+                            if a["arm"][0] == kind) / 2
+    print(f"overlap: {len(reads)} reads, serial {mean('S'):.3f} s, "
+          f"overlapped {mean('O'):.3f} s (mean of two arms each)", flush=True)
+    return arms[1][0]["launches"]
 
 
 def _dist_rank(rank: int, world_size: int, job: str) -> None:
@@ -1126,6 +1273,7 @@ def phase_run(rng):
     finally:
         driver.select_sv_reads = select_sv_reads
     after_map = dict(_ext.LAUNCHES)
+    shapes_after = dict(_ext.FILL_SHAPES)
     shapes = dict(shapes_map)
     for k, v in _ext.FILL_SHAPES.items():
         shapes[k] = shapes.get(k, 0) + v
@@ -1170,7 +1318,8 @@ def phase_run(rng):
               vcf_rows=len(rows), vcf_parses=vcf_ok,
               resume_s=resume_s, resume_same_calls=same,
               resume_launches=resume_launches,
-              host_clock_spans={k: v["total_s"] for k, v in spans}))
+              host_clock_spans={k: v["total_s"] for k, v in spans},
+              spans_note=SPANS_NOTE))
     _require_launched(at_map_end, "in the map stage of run")
     _require_launched(after_map, "in the stages after map")
     if recall < 0.9 or precision < 0.9:
@@ -1180,8 +1329,70 @@ def phase_run(rng):
         raise AssertionError("calls.vcf does not parse back to the calls")
     if not same or any(resume_launches.values()):
         raise AssertionError("resume changed the calls or launched a kernel")
+    run_launches = {k: at_map_end[k] + after_map[k] for k in after_map}
+
+    # the same world once more in the serial arm, into its own out_dir,
+    # from the overlapped run's map checkpoint (phase overlap holds the
+    # serial map against the overlapped one; this cut keeps the script
+    # near half its time limit): the same bytes, stage records, launches
+    # and fill shapes after map
+    serial_dir = os.path.join(REPO, "build", "smoke_run_serial")
+    shutil.rmtree(serial_dir, ignore_errors=True)
+    os.makedirs(serial_dir)
+    for name in ("map.npz", "map.done"):
+        shutil.copy(os.path.join(out_dir, name), serial_dir)
+    _ext.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with serial_workers():
+        t3 = time.time()
+        sres = driver.run_pipeline(ref, reads, cfg, out_dir=serial_dir,
+                                   resume=True, device="cuda")
+        torch.cuda.synchronize()
+        serial_s = time.time() - t3
+    differ = [name for name in ("calls.vcf", "remapped.sam")
+              if _read(out_dir, name) != _read(serial_dir, name)]
+    differ += [name for name in STAGE_FILES
+               if not _npz_equal(os.path.join(out_dir, name),
+                                 os.path.join(serial_dir, name))]
+    if dict(_ext.LAUNCHES) != after_map or _ext.FILL_SHAPES != shapes_after:
+        differ.append("launches")
+    after_map_s = sum(v for k, v in res.timings.items() if k != "map")
+    emit(dict(phase="run_serial", from_stage="sv_reads", run_s=serial_s,
+              overlapped_run_s=run_s, overlapped_after_map_s=after_map_s,
+              stage_s=sres.timings,
+              peak_device_bytes=torch.cuda.max_memory_allocated(),
+              launches=dict(_ext.LAUNCHES), differ=differ))
+    print(f"run after map: overlapped {after_map_s:.2f} s, serial "
+          f"{serial_s:.2f} s", flush=True)
+    if differ:
+        raise AssertionError(f"the serial run differs from the overlapped "
+                             f"one in {differ}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    return {k: at_map_end[k] + after_map[k] for k in after_map}, after_map
+    shutil.rmtree(serial_dir, ignore_errors=True)
+    return run_launches, after_map
+
+
+# the stage checkpoints of run_pipeline's out_dir
+STAGE_FILES = ("map.npz", "sv_reads.npz", "signatures.npz",
+               "consensus.npz", "remap.npz")
+
+
+def _read(directory: str, name: str) -> bytes:
+    with open(os.path.join(directory, name), "rb") as fh:
+        return fh.read()
+
+
+def _npz_equal(a: str, b: str) -> bool:
+    """Two ``.npz`` files hold the same arrays: names, dtypes, shapes and
+    every value."""
+    import numpy as np
+
+    with np.load(a, allow_pickle=False) as x, \
+            np.load(b, allow_pickle=False) as y:
+        return (sorted(x.files) == sorted(y.files)
+                and all(x[k].dtype == y[k].dtype
+                        and np.array_equal(x[k], y[k]) for k in x.files))
 
 
 def main() -> int:
@@ -1215,6 +1426,7 @@ def main() -> int:
     phase_chain(rng, stats)
     map_launches, map_world = phase_map(rng)
     mesh_launches = phase_mesh(rng, map_world)
+    overlap_launches = phase_overlap(map_world)
     del map_world
     dist_launches = phase_dist(rng)
     run_launches, after_map = phase_run(rng)
@@ -1242,6 +1454,7 @@ def main() -> int:
              launches=run_launches[k], launches_map_phase=map_launches[k],
              launches_run_after_map=after_map[k],
              launches_mesh_phase=mesh_launches[k],
+             launches_overlap_phase=overlap_launches[k],
              launches_dist_phase=dist_launches[k], library_ms=None,
              **stats[k])
         for k in ("fill", "fill_i16", "chain", "traceback")]})

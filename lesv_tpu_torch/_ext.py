@@ -15,9 +15,11 @@ its tensors' device current (the sources hold no per-process state, and
 every launch, so any card of the host can be addressed).
 
 ``LAUNCHES`` holds one plain integer per kernel.  A wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.  ``FILL_SHAPES`` counts the fill's launches
-by shape, keyed ``(state type, mode, free_end, Qmax, W, B)``, beside it.
+it launches its kernel and nowhere else (:func:`count_launch`), so a run
+can show that its main path went through the kernels.  ``FILL_SHAPES``
+counts the fill's launches by shape, keyed ``(state type, mode, free_end,
+Qmax, W, B)``, beside it.  Both are updated under a lock: the wrappers run
+on several dispatch threads at once.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (*KERNELS, "fill_i16")}
 FILL_SHAPES: dict[tuple, int] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[str, ctypes._CFuncPtr] = {}
 
@@ -48,9 +51,18 @@ I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    FILL_SHAPES.clear()
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        FILL_SHAPES.clear()
+
+
+def count_launch(kernel: str, shape: tuple | None = None) -> None:
+    """Count one launch of ``kernel`` and, for the fill, of its ``shape``."""
+    with _count_lock:
+        LAUNCHES[kernel] += 1
+        if shape is not None:
+            FILL_SHAPES[shape] = FILL_SHAPES.get(shape, 0) + 1
 
 
 def _nvcc() -> str:

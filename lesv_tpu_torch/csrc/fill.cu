@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define NEG32 (-(1 << 28))
 #define NEG16 (-16384)
 #define FULLMASK 0xffffffffu
@@ -995,8 +997,15 @@ template <typename T, bool D, bool F>
 static int launch_block(const Args& a) {
   const int nt = a.W >= 1024 ? 1024 : ((a.W + 31) / 32) * 32;
   const size_t smem = a.scratch ? 0 : block_state_bytes(a.W, sizeof(T));
+  // with the static edge buffers this passes the 48 KB default, so the
+  // kernel's cap is raised to this launch's size.  The cap belongs to the
+  // kernel, shared by every host thread: it is set and the launch queued
+  // under one lock, so that another thread's smaller launch cannot lower
+  // it in between
+  static std::mutex cap_mu;
+  std::unique_lock<std::mutex> lk(cap_mu, std::defer_lock);
   if (smem > 16 * 1024) {
-    // with the static edge buffers this passes the 48 KB default
+    lk.lock();
     cudaError_t e = cudaFuncSetAttribute(
         fill_block<T, D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

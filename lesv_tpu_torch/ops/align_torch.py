@@ -289,9 +289,9 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
                  dirs.data_ptr(), score.data_ptr(), end_i.data_ptr(),
                  end_b.data_ptr(), ok.data_ptr(), _ext.stream_of(q))
     _ext.check(err, "lesv_fill")
-    _ext.LAUNCHES["fill_i16" if i16 else "fill"] += 1
-    key = ("i16" if i16 else "i32", mode, bool(free_end), Qmax, W, B)
-    _ext.FILL_SHAPES[key] = _ext.FILL_SHAPES.get(key, 0) + 1
+    _ext.count_launch("fill_i16" if i16 else "fill",
+                      ("i16" if i16 else "i32", mode, bool(free_end), Qmax,
+                       W, B))
     return dirs, score, end_i, end_b, ok.bool()
 
 
@@ -398,7 +398,7 @@ def traceback_cuda(dirs, end_i, end_b, ok, W: int, mode: str, T: int):
                  ops.data_ptr(), nops.data_ptr(), reached.data_ptr(),
                  _ext.stream_of(dirs))
     _ext.check(err, "lesv_traceback")
-    _ext.LAUNCHES["traceback"] += 1
+    _ext.count_launch("traceback")
     return ops, nops, reached.bool()
 
 

@@ -110,7 +110,7 @@ def chain_scan_cuda(qs, ss, vs, J: int, length: int, max_dq: int,
                  length, max_dq, max_dr, bw, f.data_ptr(), p.data_ptr(),
                  v.data_ptr(), _ext.stream_of(qs))
     _ext.check(err, "lesv_chain")
-    _ext.LAUNCHES["chain"] += 1
+    _ext.count_launch("chain")
     return f, p, v
 
 

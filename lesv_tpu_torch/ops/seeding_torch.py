@@ -13,6 +13,8 @@ same lower bound as the JAX prefix-table + limb binary search, so the
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -63,18 +65,25 @@ class DeviceIndex:
 # held, not its id(): a freed index's id can be reused by the next
 # subject volume's index, which may even have the same hash count.
 _DEVICE_INDEX_CACHE: list = []
+_DEVICE_INDEX_LOCK = threading.Lock()
 
 
 def device_index_of(index: KmerIndex, device) -> DeviceIndex:
-    """The (cached) device copy of ``index``; one live index at a time."""
+    """The (cached) device copy of ``index``; one live index at a time.
+    Map workers call it at once: the first builds the copy, and on a card
+    waits for its upload, so that a worker on another stream may read it
+    at once."""
     dev = torch.device(device)
-    if (_DEVICE_INDEX_CACHE and _DEVICE_INDEX_CACHE[0] is index
-            and _DEVICE_INDEX_CACHE[1].device == dev):
-        return _DEVICE_INDEX_CACHE[1]
-    _DEVICE_INDEX_CACHE.clear()
-    di = DeviceIndex(index, dev)
-    _DEVICE_INDEX_CACHE.extend([index, di])
-    return di
+    with _DEVICE_INDEX_LOCK:
+        if (_DEVICE_INDEX_CACHE and _DEVICE_INDEX_CACHE[0] is index
+                and _DEVICE_INDEX_CACHE[1].device == dev):
+            return _DEVICE_INDEX_CACHE[1]
+        _DEVICE_INDEX_CACHE.clear()
+        di = DeviceIndex(index, dev)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        _DEVICE_INDEX_CACHE.extend([index, di])
+        return di
 
 
 def _hash_kmers(codes: torch.Tensor, k: int):

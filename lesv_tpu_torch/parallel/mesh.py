@@ -24,6 +24,7 @@ opt in with ``use_mesh(make_mesh(devices=[cpu] * n))``.
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -77,6 +78,7 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 _ACTIVE: list[Mesh] = []
 _UNSET = object()
 _AUTO: Mesh | None | object = _UNSET
+_AUTO_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -107,10 +109,11 @@ def _auto_mesh(dev: torch.device) -> Mesh | None:
     global _AUTO
     if dev.type != "cuda":
         return None
-    if _AUTO is _UNSET:
-        n = torch.cuda.device_count()
-        _AUTO = make_mesh(n) if n > 1 else None
-    return _AUTO
+    with _AUTO_LOCK:
+        if _AUTO is _UNSET:
+            n = torch.cuda.device_count()
+            _AUTO = make_mesh(n) if n > 1 else None
+        return _AUTO
 
 
 def _cut(mesh: Mesh, x, dtype) -> list[torch.Tensor]:

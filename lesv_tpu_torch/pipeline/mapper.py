@@ -28,7 +28,11 @@ from lesv_tpu_torch.ops.cigar import match_mask
 from lesv_tpu_torch.ops.pairseed import mem_anchors
 from lesv_tpu_torch.ops.pairseed_torch import _pad_pow2_dim
 from lesv_tpu_torch.ops.seeding import collect_seed_matches
-from lesv_tpu_torch.ops.seeding_torch import seed_matches_batch
+from lesv_tpu_torch.ops.seeding_torch import (
+    device_index_of,
+    seed_matches_batch,
+)
+from lesv_tpu_torch.parallel.streams import StreamPool
 from lesv_tpu_torch.pipeline.batch_align import _shrink_M, batch_pair_chains
 from lesv_tpu_torch.utils import profiling
 from lesv_tpu_torch.utils.logging import log
@@ -403,7 +407,9 @@ def map_all(
     """Map reads against one index on ``device``; returns (M4s, query
     store).  With ``ckpt_dir`` each read batch's M4s are checkpointed and
     a restarted run resumes after the completed batches.  ``sid_base``
-    translates volume-local subject ids back to global ids."""
+    translates volume-local subject ids back to global ids.  On a card
+    ``_map_overlap_depth`` batches are in flight at once, each on CUDA
+    streams of its own; the M4s come back in batch order either way."""
     from lesv_tpu_torch.pipeline import stages_io as sio
 
     cfg = cfg or LesvConfig()
@@ -412,13 +418,12 @@ def map_all(
     if ckpt_dir:
         os.makedirs(ckpt_dir, exist_ok=True)
     vstore = store if sid_base == 0 else _VolStoreView(store, sid_base)
-    out: list[M4] = []
-    for bi, qids in enumerate(_query_batches(qstore, cfg)):
+
+    def run_one(bi: int, qids: list[int]) -> list[M4]:
         part = (os.path.join(ckpt_dir, f"{part_prefix}_{bi:05d}.npz")
                 if ckpt_dir else None)
         if part and os.path.exists(part):
-            out.extend(sio.load_m4s(part))
-            continue
+            return sio.load_m4s(part)
         m4s = map_batch([(qid, qstore.get(qid)) for qid in qids], vstore,
                         index, cfg, device=device)
         for m in m4s:
@@ -426,8 +431,31 @@ def map_all(
         if part:
             sio.save_m4s(part + ".tmp.npz", m4s)
             os.replace(part + ".tmp.npz", part)
-        out.extend(m4s)
+        return m4s
+
+    batches = list(enumerate(_query_batches(qstore, cfg)))
+    out: list[M4] = []
+    depth = _map_overlap_depth(device)
+    if depth <= 1 or len(batches) <= 1:
+        for bi, qids in batches:
+            out.extend(run_one(bi, qids))
+        return out, qstore
+    # batches in flight: one batch's device seeding and fills run under
+    # the host window and extension work of the other.  The device index
+    # is built here, before any worker reads it from its own stream.
+    if cfg.map.engine == "device":
+        device_index_of(index, device)
+    with StreamPool(depth, device) as pool:
+        futs = [pool.submit(run_one, bi, qids) for bi, qids in batches]
+        for f in futs:
+            out.extend(f.result())
     return out, qstore
+
+
+def _map_overlap_depth(device) -> int:
+    """Map batches in flight: 2 on a card, 1 (one batch after the other)
+    on the CPU, where the plain fills are compute-bound."""
+    return 1 if torch.device(device).type == "cpu" else 2
 
 
 def map_all_volumes(

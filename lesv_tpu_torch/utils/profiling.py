@@ -6,7 +6,9 @@ hbn_timing_begin/end) and commented-out gperftools hooks
 on top of the same per-stage timers:
 
 * `trace(name)` — span context manager feeding an in-process registry;
-  nestable; thread-safe; ~zero cost when disabled.
+  nestable; thread-safe; ~zero cost when disabled.  Spans opened on the
+  dispatch and map worker threads add up, so a span's total (and a
+  parent span's) can exceed the wall time it ran in.
 * machine-readable report: `report()` returns {span: {count, total_s,
   mean_s}}; `dump_json(path)` writes it.
 * device profiling: `device_trace(logdir)` wraps `torch.profiler.profile`

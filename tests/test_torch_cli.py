@@ -1,14 +1,21 @@
 """The host-only subcommands of ``python -m lesv_tpu_torch`` (``config``,
 ``split``, ``view``, ``dump``) against ``python -m lesv_tpu`` on the same
 inputs: the same bytes written and the same lines printed (modelled on
-tests/test_cli.py).  Nothing here touches a device."""
+tests/test_cli.py).  Then ``run cfg`` with a ``TRF_FILE``, the port on the
+CPU, against lesv_tpu's: the same lines printed and the same VCF and SAM
+bytes."""
 
 import numpy as np
 import pytest
+import torch
 
 from lesv_tpu.__main__ import main as jax_main
 from lesv_tpu.io.fasta import write_fasta
 from lesv_tpu_torch.__main__ import build_config, main, parse_cfg
+
+# one intra-op thread: the suite runs several workers at once, and the
+# small CPU tensor ops of the plain versions gain nothing from more
+torch.set_num_threads(1)
 
 
 def _both(capsys, argv_of):
@@ -97,3 +104,45 @@ def test_dump_writes_the_same_bytes(tmp_path, capsys):
 def test_host_subcommands_take_no_device(tmp_path):
     with pytest.raises(SystemExit):
         main(["view", str(tmp_path / "x.fa"), "--device", "cpu"])
+
+
+def test_run_with_a_trf_file_writes_the_same_vcf(tmp_path, capsys):
+    """``run cfg`` with a ``TRF_FILE`` (a tandem array on chr1, a line for
+    a chromosome the reference lacks, a line too short to read): the port
+    on the CPU and lesv_tpu print the same counts and write the same
+    ``calls.vcf`` and ``remapped.sam`` bytes, and the planted DEL is
+    called."""
+    from lesv_tpu.sim import plant_svs, random_genome, simulate_reads
+
+    rng = np.random.default_rng(11)
+    genome = random_genome(rng, 24_000)
+    unit = rng.integers(0, 4, 37).astype(np.uint8)
+    genome[2_000:4_500] = np.tile(unit, 68)[:2_500]
+    donor, truth = plant_svs(rng, genome, n_del=1, n_ins=0, min_len=150,
+                             max_len=300, margin=9_000, min_gap=1_000)
+    reads = simulate_reads(rng, donor, coverage=5.0, mean_len=4_500,
+                           min_len=3_500, err=0.06)
+    write_fasta(str(tmp_path / "ref.fa"), [("chr1", genome)])
+    write_fasta(str(tmp_path / "reads.fa"), reads)
+    (tmp_path / "trf.bed").write_text(
+        "chr1\t2000\t4500\t37\nchrUn\t10\t900\nchr1\t5\n")
+    for tag in ("torch", "jax"):
+        (tmp_path / f"{tag}.cfg").write_text(
+            f"PROJECT={tmp_path / tag}\nRAW_READS={tmp_path / 'reads.fa'}\n"
+            f"REFERENCE={tmp_path / 'ref.fa'}\n"
+            f"TRF_FILE={tmp_path / 'trf.bed'}\nSVR_MIN_SEQ_SIZE=3000\n")
+    capsys.readouterr()
+    main(["run", str(tmp_path / "torch.cfg"), "--device", "cpu"])
+    got = capsys.readouterr().out
+    jax_main(["run", str(tmp_path / "jax.cfg")])
+    want = capsys.readouterr().out
+    assert got == want.replace(str(tmp_path / "jax"), str(tmp_path / "torch"))
+    for name in ("calls.vcf", "remapped.sam"):
+        assert (tmp_path / "torch" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    (sv,) = truth.svs
+    rows = [ln.split("\t") for ln in
+            (tmp_path / "torch" / "calls.vcf").read_text().splitlines()
+            if not ln.startswith("#")]
+    assert any(abs(int(r[1]) - sv.ref_pos) <= 50 and "SVTYPE=DEL" in r[7]
+               for r in rows), rows

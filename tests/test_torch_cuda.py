@@ -365,3 +365,190 @@ def test_map_on_cuda_equals_cpu(dev):
     assert [key(m) for m in got] == [key(m) for m in want]
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.ops, b.ops)
+
+
+def _serial_workers(monkeypatch):
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.pipeline import mapper
+
+    monkeypatch.setattr(align_batch, "_n_dispatch_workers", lambda d: 1)
+    monkeypatch.setattr(mapper, "_map_overlap_depth", lambda d: 1)
+
+
+def _counts():
+    from lesv_tpu_torch.ops import align_batch
+
+    return (dict(_ext.LAUNCHES), dict(_ext.FILL_SHAPES),
+            dict(align_batch.FILL_STATS))
+
+
+def _reset_counts():
+    from lesv_tpu_torch.ops import align_batch
+
+    _ext.reset_launches()
+    align_batch.reset_fill_stats()
+
+
+def _m4_key(m):
+    return (m.qid, m.qdir, m.sid, m.qoff, m.qend, m.qsize, m.soff, m.send,
+            m.ssize, m.score, m.dist, round(m.ident_perc, 9),
+            m.ops.tobytes())
+
+
+def test_overlapped_map_all_equals_serial(dev, monkeypatch):
+    """Four map batches, two in flight, each align_pairs and
+    batch_pair_chains call on 8 dispatch workers with a stream each: the
+    same M4 records as the serial arm (worker counts 1), and the same
+    launches per kernel and fill launches per shape."""
+    from lesv_tpu_torch.pipeline import mapper
+
+    rng = np.random.default_rng(12)
+    genome = random_genome(rng, 300_000)
+    store = SeqStore.from_records([("chr1", genome)])
+    cfg = LesvConfig()
+    cfg.map.batch_reads = 4
+    index = KmerIndex.build(store, cfg.index)
+    reads = []
+    for i in range(12):
+        st = int(rng.integers(0, 280_000))
+        r = mutate_read(rng, genome[st : st + int(rng.integers(2_000,
+                                                               15_000))],
+                        err=0.1)
+        reads.append((f"r{i}", r))
+    # a 1.6 kb stretch at 35% error: one segment of the Q=2048 bucket,
+    # outside the int16 gate, so the int32 fill launches too
+    st = 100_000
+    reads.append(("noisy_mid", np.concatenate([
+        mutate_read(rng, genome[st : st + 5_000], err=0.1),
+        mutate_read(rng, genome[st + 5_000 : st + 6_600], err=0.35),
+        mutate_read(rng, genome[st + 6_600 : st + 12_000], err=0.1)])))
+    assert mapper._map_overlap_depth(dev) == 2
+    _reset_counts()
+    got, _ = mapper.map_all(reads, store, index, cfg, device=dev)
+    torch.cuda.synchronize()
+    pooled = _counts()
+    _serial_workers(monkeypatch)
+    _reset_counts()
+    want, _ = mapper.map_all(reads, store, index, cfg, device=dev)
+    assert [_m4_key(m) for m in got] == [_m4_key(m) for m in want]
+    assert pooled == _counts()
+    assert all(v > 0 for v in pooled[0].values()), pooled[0]
+
+
+def test_pooled_align_pairs_equals_serial(dev, monkeypatch):
+    """align_pairs on the card with 8 dispatch workers, a monster chunk on
+    the host pool and a band escape, global and free-end: the same
+    Alignments, fills, launches and shapes as the serial arm, and the same
+    Alignments as on CPU tensors."""
+    from lesv_tpu_torch.ops import align_batch
+    from torch_cases import MONSTER_DIRS_BYTES, align_pairs_world
+
+    pairs = align_pairs_world(np.random.default_rng(31))
+    monkeypatch.setattr(align_batch, "MONSTER_DIRS_BYTES", MONSTER_DIRS_BYTES)
+    cfg = AlignConfig()
+    aln = lambda a: None if a is None else (a.qb, a.qe, a.sb, a.se, a.score,
+                                             a.ops.tobytes())
+    for free_end in (False, True):
+        assert align_batch._n_dispatch_workers(dev) == 8
+        with monkeypatch.context() as mp:
+            arms = []
+            for serial in (False, True):
+                if serial:
+                    mp.setattr(align_batch, "_n_dispatch_workers",
+                               lambda d: 1)
+                _reset_counts()
+                out = align_batch.align_pairs(pairs, cfg, free_end=free_end,
+                                              device=dev)
+                arms.append(([aln(a) for a in out], _counts()))
+        assert arms[0] == arms[1]
+        assert arms[0][1][2]["host_fills"] >= 5
+        on_cpu = align_batch.align_pairs(pairs, cfg, free_end=free_end,
+                                         device="cpu")
+        assert arms[0][0] == [aln(a) for a in on_cpu]
+
+
+def test_seed_budget_retry_on_the_card_equals_cpu(dev, monkeypatch):
+    """The card-only retry of reads over the seed-match budget M at 2M:
+    with M set so that some reads overflow M but not 2M and some overflow
+    2M (among them a read of a tandem array), ``map_batch`` on the card,
+    serial and with 8 dispatch workers, equals ``map_batch`` on the CPU,
+    where every overflowing read goes straight to the host oracle."""
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.ops.seeding_torch import seed_matches_batch
+    from lesv_tpu_torch.pipeline import mapper
+    from lesv_tpu_torch.sim import repeat_genome
+
+    rng = np.random.default_rng(8)
+    genome, trf = repeat_genome(rng, 200_000, n_tandem=3,
+                                array_range=(4_000, 6_000), n_dups=2)
+    store = SeqStore.from_records([("chr1", genome)])
+    cfg = LesvConfig()
+    index = KmerIndex.build(store, cfg.index)
+    batch = []
+    for i in range(14):
+        st = int(rng.integers(0, 185_000))
+        n = int(rng.integers(1_500, 14_000))
+        batch.append((i, mutate_read(rng, genome[st : st + n], err=0.1)))
+    a, b = trf[0]
+    batch.append((14, mutate_read(rng, genome[a:b], err=0.05)))
+    reads = [r for _, r in batch]
+    _, _, _, total = seed_matches_batch(reads, index, cfg.seeding,
+                                        M=1 << 17, device="cpu")
+    per_read = total.numpy()[: 2 * len(reads)].reshape(-1, 2).max(axis=1)
+    M = int(np.sort(per_read)[len(reads) // 2])
+    assert ((per_read > M) & (per_read <= 2 * M)).sum() >= 2
+    assert (per_read > 2 * M).sum() >= 2
+    assert per_read[14] > 2 * M
+    cfg.map.seed_match_budget = M
+
+    budgets = []
+    chunk = mapper._seed_chain_chunk
+
+    def spy(reads, index, cfg, M, Qmax, device):
+        budgets.append(M)
+        return chunk(reads, index, cfg, M, Qmax, device)
+
+    monkeypatch.setattr(mapper, "_seed_chain_chunk", spy)
+    want = [_m4_key(m) for m in mapper.map_batch(batch, store, index, cfg,
+                                                  device="cpu")]
+    assert 2 * M not in budgets
+    assert len(want) > 0
+    for workers in (8, 1):
+        monkeypatch.setattr(align_batch, "_n_dispatch_workers",
+                            lambda d, n=workers: n)
+        budgets.clear()
+        got = mapper.map_batch(batch, store, index, cfg, device=dev)
+        assert 2 * M in budgets
+        assert [_m4_key(m) for m in got] == want
+
+
+def test_wide_fills_from_many_threads_at_once(dev):
+    """The wide fill design (W above 2,048) raises its kernel's
+    shared-memory cap to each launch's size.  Eight threads launching it
+    at once at two widths (int32 state, one kernel, two cap values) all
+    launch, and every result equals the one-thread result."""
+    import concurrent.futures as cf
+
+    rng = np.random.default_rng(21)
+    cfg = AlignConfig()
+    cases = []
+    for W in (2049, 4096):
+        t = tuple(torch.from_numpy(a).to(dev)
+                  for a in _fill_batch(rng, W, "full", B=4, lo=300, hi=700))
+        want = align_torch.banded_fill(*t, W, "full", cfg, force_i16=False)
+        cases.append((t, W, want))
+
+    def work(i):
+        outs = []
+        for k in range(16):
+            t, W, _ = cases[(i + k) % 2]
+            outs.append(((i + k) % 2, align_torch.banded_fill(
+                *t, W, "full", cfg, force_i16=False)))
+        torch.cuda.synchronize()
+        return outs
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        runs = list(pool.map(work, range(8)))
+    for outs in runs:
+        for c, got in outs:
+            _outputs_equal(got, cases[c][2], cases[c][0][2])

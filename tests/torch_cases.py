@@ -64,3 +64,40 @@ def traceback_edge_case(rng, B: int, R: int, W: int):
     ok = np.ones(B, bool)
     ok[0] = False
     return dirs, end_i, end_b, ok
+
+
+N_MONSTER = 5
+MONSTER_DIRS_BYTES = 20_000_000
+
+
+def align_pairs_world(rng):
+    """About 200 (q, s) pairs over many (Q, S, W, mode) buckets, none of
+    more than 128 pairs: reads against their source at 10% error, 20 to
+    250 bp, some with a deletion or an insertion (full-mode buckets); one
+    pair with no base in common (free-end: its best cell is the origin, so
+    the lane fails and is retried on the host); an empty query; and
+    ``N_MONSTER`` long pairs (query 1,100, subject 3,000) at the end.  With
+    ``align_batch.MONSTER_DIRS_BYTES`` set to ``MONSTER_DIRS_BYTES`` the
+    long pairs' chunk (query rows 4,096, 8 lanes, W 4,096 full or 1,024
+    diag) is a monster and every other chunk stays below."""
+    from lesv_tpu_torch.sim import mutate_read
+
+    pairs = []
+    for k in range(195):
+        n = int(rng.integers(20, 250))
+        s = rng.integers(0, 4, n).astype(np.uint8)
+        q = mutate_read(rng, s, err=0.1)[:250]
+        if k % 7 == 0:
+            cut = int(rng.integers(5, max(6, n // 2)))
+            q = np.concatenate([q[:cut], q[cut + n // 3 :]])
+        elif k % 11 == 0:
+            q = np.concatenate([q[: n // 2],
+                                rng.integers(0, 4, n // 3).astype(np.uint8),
+                                q[n // 2 :]])[:250]
+        pairs.append((q, s))
+    pairs.append((np.zeros(120, np.uint8), np.ones(150, np.uint8)))
+    pairs.append((np.zeros(0, np.uint8), pairs[0][1]))     # empty: None
+    for _ in range(N_MONSTER):
+        s = rng.integers(0, 4, 3_000).astype(np.uint8)
+        pairs.append((mutate_read(rng, s[:1_100], err=0.1)[:1_100], s))
+    return pairs
