@@ -58,14 +58,28 @@ Phases, each printing one JSON line:
    intervals, over the arm's wall time).  Every arm prints its wall
    seconds, bases/s and peak device memory, and must give the same M4
    records, launches per kernel, fill launches per shape and fills;
-8. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
+8. ``route``: lesv_tpu's routing of small work to the host
+   (``align_batch._host_route``, ``_chunk_prefers_host``,
+   ``batch_align._host_route_pairs``).  First the rates of its cost model
+   on this card (``route_rates``: the native host fill on one worker and on
+   the host pool, the fill kernel per state type at ``FILL_HIST_SHAPES``
+   and above W=2,048, a chunk's fixed cost, the traceback a lane-step, a
+   finish's readback), printed on one line as ``align_batch.CostRates``
+   keywords beside the rates in use; then phase ``map``'s 512 reads in
+   turns routing off (R0) and on (R1): R0, R1, R0, R1, each printing wall
+   seconds, bases/s, launches, ``FILL_STATS`` and peak device memory; the
+   M4 records of every arm must be equal.  Then ``map_all`` on plain
+   ``cuda`` with ``LESV_TORCH_MESH=0`` (whole chunks dealt to the cards in
+   turn) must equal the map on ``cuda:0`` and under a mesh of every card,
+   with the fill chunks each card took (one card: all on it);
+9. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
    reference with 5 DEL + 5 INS planted and reads at coverage 10, once
    with ``LocalExchange`` in this process and once as two spawned
    processes joined by ``TorchExchange`` over gloo (a ``file://``
    rendezvous under ``build/smoke_dist``), both on the cards present: the call
    lists must be equal field for field, on every rank.  A rank that fails
    or outlasts ``DIST_JOIN_S`` fails the phase;
-9. ``run``: reads to a VCF through
+10. ``run``: reads to a VCF through
    ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on an
    8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
    coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
@@ -82,6 +96,10 @@ Phases, each printing one JSON line:
    ``remapped.sam``, every stage ``.npz``, the launches and the fill
    shapes after map must be equal.  Host-clock spans sum over the worker
    threads, so a span's total can exceed the wall time.
+
+Phases ``map``, ``mesh``, ``overlap`` and ``dist`` run with the routing
+off (``host_routing(False)``), so that they compare with the runs before
+it; phase ``run`` runs the default, routing on.
 
 Then the card's ``nvidia-smi`` line, the kernel table (the traceback at
 diag Q=4096 W=512 with diag Q=256 W=512 under ``other_shapes``, each fill
@@ -953,6 +971,28 @@ def serial_workers():
         align_batch._n_dispatch_workers, mapper._map_overlap_depth = saved
 
 
+@contextlib.contextmanager
+def env_switch(name: str, value: str):
+    """Set the switch ``name`` to ``value`` for the block (the port reads
+    its switches at call time; spawned processes inherit it)."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def host_routing(on: bool):
+    """Routing of small work to the host on (lesv_tpu's plan, the default
+    on a card) or off (every fill and pair chain on the card but monster
+    chunks and band escapes, as before the routing was ported)."""
+    return env_switch("LESV_TORCH_HOST_SMALL", "1" if on else "0")
+
+
 def busy_time(fn):
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity); returns
     (its result, wall seconds, summed kernel seconds, seconds in which the
@@ -1061,6 +1101,265 @@ def phase_overlap(world):
                             if a["arm"][0] == kind) / 2
     print(f"overlap: {len(reads)} reads, serial {mean('S'):.3f} s, "
           f"overlapped {mean('O'):.3f} s (mean of two arms each)", flush=True)
+    return arms[1][0]["launches"]
+
+
+# a bucket of the wide fill design (W above csrc/fill.cu's REG_W = 2,048):
+# `run`'s diag Q=8192 W=4096 launches
+WIDE_SHAPE = ("i32", "diag", False, 8192, 4096, 8)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def route_rates(cfg):
+    """The rates of ``align_batch.CostRates`` on this card, measured: the
+    native host fill (cells of ``_host_cost`` a second, one worker and the
+    host pool's workers) and the fill kernel (cells of the cost model,
+    longest query x W x lanes, a second of device time) at the buckets of
+    ``FILL_HIST_SHAPES`` and ``WIDE_SHAPE``; the fixed cost of a chunk (host
+    clock of ``banded_align_dispatch`` + ``banded_align_finish`` at one
+    lane of full Q=64 W=64); the traceback kernel's device time a
+    lane-step at full Q=64 W=64 B=1,024 and diag Q=4096 W=512 B=256; the
+    bytes a second of a finish's readback at diag B=256 Q=4096 W=512.
+    Returns (rates as CostRates keywords, the measurements)."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+
+    from lesv_tpu_torch.ops import align_batch as ab
+    from lesv_tpu_torch.ops import align_torch as at
+
+    hrng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    nw = ab._n_host_workers()
+    host, fill, tb = [], [], []
+    for shape in FILL_HIST_SHAPES + [WIDE_SHAPE]:
+        qn, sn, qln, sln, W, mode, fe = hist_case(hrng, shape)
+        B, Q = qn.shape
+        pairs = [(qn[i, : qln[i]].copy(), sn[i, : sln[i]].copy())
+                 for i in range(B)]
+        cells = sum(ab._host_cost(len(q), len(s), fe) for q, s in pairs)
+        saved = ab._n_host_workers
+        ab._n_host_workers = lambda: 1
+        try:
+            one = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ab.align_pairs_host(pairs, cfg, fe)
+                one.append(time.perf_counter() - t0)
+        finally:
+            ab._n_host_workers = saved
+        step = -(-B // nw)
+        blocks = [pairs[k : k + step] for k in range(0, B, step)]
+        many = []
+        with cf.ThreadPoolExecutor(nw) as pool:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                list(pool.map(lambda b: ab.align_pairs_host(b, cfg, fe),
+                              blocks))
+                many.append(time.perf_counter() - t0)
+        host.append(dict(shape=list(shape), host_cells=cells,
+                         one_worker_cells_s=cells / min(one),
+                         workers=nw, workers_cells_s=cells / min(many)))
+        q, s, ql, sl = (torch.from_numpy(x).to(dev)
+                        for x in (qn, sn, qln, sln))
+        i16 = at.i16_ok(Q, W, cfg)
+        k_dev, k_host = device_host_ms(lambda: at.fill_cuda(
+            q, s, ql, sl, W, mode, cfg, fe, i16=i16), 5)
+        model_cells = int(qln.max()) * W * B
+        fill.append(dict(shape=list(shape), i16=i16, device_ms=k_dev,
+                         host_ms=k_host, cells=model_cells,
+                         cells_s=model_cells / k_dev * 1e3))
+        if shape[3:] in ((64, 64, 1024),):
+            d, _, ei, eb, ok = at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe,
+                                            i16=i16)
+            T = Q + 1 + W + 2
+            t_dev, _ = device_host_ms(lambda: at.traceback_cuda(
+                d, ei, eb, ok, W, mode, T), 5)
+            tb.append(dict(shape=f"{mode} B={B} Q={Q} W={W} T={T}",
+                           device_ms=t_dev, s_per_lane_step=t_dev * 1e-3
+                           / (B * T)))
+        del q, s, ql, sl
+
+    # traceback and readback at diag B=256 Q=4096 W=512
+    qn, sn, qln, sln, W, mode, fe = fill_case(hrng, "diag_W512")
+    B, Q = qn.shape
+    d, _, ei, eb, ok = at.fill_cuda(*(torch.from_numpy(x).to(dev)
+                                      for x in (qn, sn, qln, sln)),
+                                    W, mode, cfg, fe)
+    T = Q + 1 + W + 2
+    t_dev, _ = device_host_ms(lambda: at.traceback_cuda(
+        d, ei, eb, ok, W, mode, T), 5)
+    tb.append(dict(shape=f"{mode} B={B} Q={Q} W={W} T={T}", device_ms=t_dev,
+                   s_per_lane_step=t_dev * 1e-3 / (B * T)))
+    del d
+    d2h = []
+    for _ in range(5):
+        pend = at.banded_align_dispatch(qn, sn, qln, sln, W, mode, cfg, fe,
+                                        device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = at.banded_align_finish(pend)
+        sec = time.perf_counter() - t0
+        nbytes = sum(sh[k].numel() * sh[k].element_size()
+                     for sh in pend["shards"]
+                     for k in ("ops", "nops", "reached", "score", "end_i",
+                               "end_b", "ok"))
+        d2h.append((nbytes / sec, nbytes, sec))
+        del pend, out
+    d2h_bps, d2h_bytes, _ = _median(d2h)
+
+    # the fixed cost of a chunk: one lane of full Q=64 W=64, host clock
+    qb = np.zeros((1, 64), np.uint8)
+    sb = np.zeros((1, 64), np.uint8)
+    qb[0, :50] = hrng.integers(0, 4, 50)
+    sb[0, :50] = qb[0, :50]
+    one_lane = np.asarray([50], np.int32)
+    chunk = []
+    for k in range(41):
+        t0 = time.perf_counter()
+        at.banded_align_finish(at.banded_align_dispatch(
+            qb, sb, one_lane, one_lane, 64, "full", cfg, device=dev))
+        if k:
+            chunk.append(time.perf_counter() - t0)
+    by_type = lambda t: [f["cells_s"] for f in fill
+                         if f["i16"] == (t == "i16") and f["shape"][4] <= 2048]
+    rates = dict(
+        host_cells_s=min(h["one_worker_cells_s"] for h in host),
+        chunk_s=_median(chunk),
+        fill_i32_cells_s=min(by_type("i32")),
+        fill_i16_cells_s=min(by_type("i16")),
+        fill_wide_cells_s=fill[-1]["cells_s"],
+        traceback_s=max(t["s_per_lane_step"] for t in tb),
+        d2h_bytes_s=d2h_bps)
+    return rates, dict(host_fill=host, kernel_fill=fill, traceback=tb,
+                       chunk_s_all=[min(chunk), _median(chunk), max(chunk)],
+                       d2h=dict(bytes=d2h_bytes, bytes_s=d2h_bps))
+
+
+def phase_route(world):
+    """lesv_tpu's routing of small work to the host, on the card: the cost
+    model's rates (``route_rates``), then phase map's 512 reads mapped in
+    turns with routing off (R0) and on (R1): R0, R1, R0, R1.  Every arm
+    prints its wall seconds, bases/s, launches, ``FILL_STATS`` and peak
+    device memory, and every arm must give the same M4 records (each kind
+    of arm also the same launches and fills).  Then the round-robin
+    without a mesh: ``map_all`` on plain ``cuda`` with ``LESV_TORCH_MESH=0``
+    against the map on ``cuda:0`` and under a mesh of every card, routing
+    off, record for record, with the fill chunks each card took (on one
+    card all on that card).  Returns the launches of the first R1 arm."""
+    import collections
+
+    import torch
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.config import AlignConfig
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.parallel import mesh as pm
+    from lesv_tpu_torch.pipeline.mapper import map_all
+
+    t0 = time.time()
+    rates, measured = route_rates(AlignConfig())
+    emit(dict(phase="route", part="rates", rates=rates, in_use=dataclasses
+              .asdict(align_batch.cost_rates()), seconds=time.time() - t0,
+              **measured))
+
+    reads, store, index, cfg = (world["reads"], world["store"],
+                                world["index"], world["cfg"])
+    bases = world["bases"]
+    arms = []
+    for kind in ("R0", "R1", "R0", "R1"):
+        _ext.reset_launches()
+        align_batch.reset_fill_stats()
+        torch.cuda.reset_peak_memory_stats()
+        with host_routing(kind == "R1"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m4s, _ = map_all(reads, store, index, cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        arm = dict(arm=kind, wall_s=wall, bases_per_s=bases / wall,
+                   m4=len(m4s), launches=dict(_ext.LAUNCHES),
+                   fills=dict(align_batch.FILL_STATS),
+                   peak_device_bytes=torch.cuda.max_memory_allocated())
+        emit(dict(phase="route", part="map", reads=len(reads),
+                  read_bases=bases, **arm))
+        arms.append((arm, [_m4_key(m) for m in m4s]))
+    keys0 = arms[0][1]
+    for arm, keys in arms[1:]:
+        if keys != keys0:
+            first = next((a, b) for a, b in zip(keys, keys0) if a != b) \
+                if len(keys) == len(keys0) else None
+            emit(dict(phase="route", part="differ", arm=arm["arm"],
+                      m4=len(keys), m4_r0=len(keys0),
+                      first_differing=None if first is None else
+                      [list(first[0][:10]), list(first[1][:10])]))
+            raise AssertionError(f"arm {arm['arm']}: M4 records differ "
+                                 "from the first R0 arm's")
+    for a, b in ((0, 2), (1, 3)):
+        if (arms[a][0]["launches"], arms[a][0]["fills"]) != (
+                arms[b][0]["launches"], arms[b][0]["fills"]):
+            raise AssertionError(f"arm {arms[b][0]['arm']}: launches or "
+                                 "fills differ from its first turn")
+    _require_launched(arms[0][0]["launches"], "by the map of phase route, "
+                      "routing off")
+    if arms[1][0]["fills"]["host_routed"] == 0:
+        raise AssertionError("routing on moved no pair to the host")
+    mean = lambda kind: sum(a["wall_s"] for a, _ in arms
+                            if a["arm"] == kind) / 2
+    print(f"route: {len(reads)} reads, routing off {mean('R0'):.3f} s, on "
+          f"{mean('R1'):.3f} s (mean of two arms each)", flush=True)
+
+    # round-robin without a mesh, against card 0 and the mesh
+    n_dev = torch.cuda.device_count()
+    per_card: collections.Counter = collections.Counter()
+    dispatch = align_batch.banded_align_dispatch
+
+    def counting(*a, device, **kw):
+        per_card[str(torch.device(device))] += 1
+        return dispatch(*a, device=device, **kw)
+
+    runs = {}
+    with host_routing(False):
+        for name in ("card_0", "round_robin", "mesh"):
+            per_card.clear()
+            align_batch.banded_align_dispatch = counting
+            ctx = (env_switch("LESV_TORCH_MESH", "0")
+                   if name == "round_robin" else
+                   pm.use_mesh(pm.make_mesh()) if name == "mesh"
+                   else contextlib.nullcontext())
+            try:
+                with ctx:
+                    sync_all()
+                    t1 = time.perf_counter()
+                    m4s, _ = map_all(reads, store, index, cfg,
+                                     device="cuda:0" if name == "card_0"
+                                     else "cuda")
+                    sync_all()
+                    wall = time.perf_counter() - t1
+            finally:
+                align_batch.banded_align_dispatch = dispatch
+            runs[name] = ([_m4_key(m) for m in m4s], wall, dict(per_card))
+    same = runs["round_robin"][0] == runs["card_0"][0] == runs["mesh"][0] \
+        == keys0
+    rr_cards = runs["round_robin"][2]
+    emit(dict(phase="route", part="round_robin", devices=n_dev,
+              one_card=n_dev == 1,
+              wall_s={k: v[1] for k, v in runs.items()},
+              fill_chunks_per_card={k: v[2] for k, v in runs.items()},
+              equal_card_0_and_mesh=same))
+    if not same:
+        raise AssertionError("M4 records of the round-robin, card 0 and "
+                             "the mesh differ")
+    want_cards = {f"cuda:{i}" for i in range(n_dev)} if n_dev > 1 \
+        else {"cuda"}
+    if set(rr_cards) != want_cards:
+        raise AssertionError(f"round-robin chunks went to {rr_cards}, not "
+                             f"to every card")
     return arms[1][0]["launches"]
 
 
@@ -1342,6 +1641,7 @@ def phase_run(rng):
     for name in ("map.npz", "map.done"):
         shutil.copy(os.path.join(out_dir, name), serial_dir)
     _ext.reset_launches()
+    align_batch.reset_fill_stats()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     with serial_workers():
@@ -1362,7 +1662,8 @@ def phase_run(rng):
               overlapped_run_s=run_s, overlapped_after_map_s=after_map_s,
               stage_s=sres.timings,
               peak_device_bytes=torch.cuda.max_memory_allocated(),
-              launches=dict(_ext.LAUNCHES), differ=differ))
+              launches=dict(_ext.LAUNCHES),
+              fills=dict(align_batch.FILL_STATS), differ=differ))
     print(f"run after map: overlapped {after_map_s:.2f} s, serial "
           f"{serial_s:.2f} s", flush=True)
     if differ:
@@ -1424,11 +1725,16 @@ def main() -> int:
     stats: dict = {}
     phase_fill(rng, stats)
     phase_chain(rng, stats)
-    map_launches, map_world = phase_map(rng)
-    mesh_launches = phase_mesh(rng, map_world)
-    overlap_launches = phase_overlap(map_world)
+    # phases map, mesh, overlap and dist with routing off, as before it was
+    # ported, so that their records, launches and times compare
+    with host_routing(False):
+        map_launches, map_world = phase_map(rng)
+        mesh_launches = phase_mesh(rng, map_world)
+        overlap_launches = phase_overlap(map_world)
+    route_launches = phase_route(map_world)
     del map_world
-    dist_launches = phase_dist(rng)
+    with host_routing(False):
+        dist_launches = phase_dist(rng)
     run_launches, after_map = phase_run(rng)
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "jaxlib", "lesv_tpu")
@@ -1455,7 +1761,8 @@ def main() -> int:
              launches_run_after_map=after_map[k],
              launches_mesh_phase=mesh_launches[k],
              launches_overlap_phase=overlap_launches[k],
-             launches_dist_phase=dist_launches[k], library_ms=None,
+             launches_dist_phase=dist_launches[k],
+             launches_route_phase=route_launches[k], library_ms=None,
              **stats[k])
         for k in ("fill", "fill_i16", "chain", "traceback")]})
     emit({"ok": True, "device": {"platform": "gpu",

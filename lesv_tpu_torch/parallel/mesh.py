@@ -18,12 +18,16 @@ A mesh reaches the pipeline through :func:`use_mesh`, or automatically: a
 call whose device is plain ``cuda`` (no index) on a host with more than one
 visible card runs its fills over all of them.  A device with an index
 (``cuda:1``) and ``cpu`` never pick up the automatic mesh; the CPU tests
-opt in with ``use_mesh(make_mesh(devices=[cpu] * n))``.
+opt in with ``use_mesh(make_mesh(devices=[cpu] * n))``.  The switch
+``LESV_TORCH_MESH=0`` (lesv_tpu's ``LESV_TPU_MESH=0``, read at call time)
+turns the automatic mesh off; ``align_batch.align_pairs`` then deals whole
+chunks to the cards in turn.  An explicit :func:`use_mesh` still applies.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from dataclasses import dataclass
 
@@ -92,12 +96,17 @@ def use_mesh(mesh: Mesh):
 
 def active_mesh(device) -> Mesh | None:
     """The mesh a dispatch on ``device`` runs over, or None: the innermost
-    :func:`use_mesh`, else the automatic mesh; only for a device without
-    an index and of the mesh's type."""
+    :func:`use_mesh`, else the automatic mesh unless ``LESV_TORCH_MESH`` is
+    ``0``; only for a device without an index and of the mesh's type."""
     dev = torch.device(device)
     if dev.index is not None:
         return None
-    mesh = _ACTIVE[-1] if _ACTIVE else _auto_mesh(dev)
+    if _ACTIVE:
+        mesh = _ACTIVE[-1]
+    elif os.environ.get("LESV_TORCH_MESH", "auto") == "0":
+        return None
+    else:
+        mesh = _auto_mesh(dev)
     if mesh is None or mesh.devices[0].type != dev.type:
         return None
     return mesh

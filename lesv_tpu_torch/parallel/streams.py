@@ -6,7 +6,8 @@ pools (``align_batch._align_pairs_jax``, ``batch_align.batch_pair_chains``,
 ``mapper.map_all``); the kernels and readbacks of one chunk then run under
 the host work of the next.  :class:`StreamPool` is that pool on a torch
 device.  Each worker thread makes one stream on every card its tasks can
-touch (the device, or every card of the mesh a dispatch on it runs over)
+touch (``cuda:N`` itself; for plain ``cuda`` every visible card, since a
+mesh or the round-robin of ``align_batch`` deals chunks to any of them)
 once, when the thread starts; a task runs with those streams current
 (``torch.cuda.stream``) and with the caller's current device, so the
 kernels' wrappers, which launch on the current stream
@@ -27,22 +28,20 @@ import threading
 
 import torch
 
-from lesv_tpu_torch.parallel import mesh as meshmod
-
 
 def _cuda_devices(device) -> list[torch.device]:
-    """The cards a dispatch on ``device`` can touch: the device itself (the
-    current card for ``cuda`` without an index), then the other cards of
-    the mesh it runs over; none for a CPU device."""
+    """The cards a dispatch on ``device`` can touch: ``cuda:N`` alone; for
+    ``cuda`` without an index the current card, then every other visible
+    card (the cards of a mesh, or of the round-robin without one); none
+    for a CPU device."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return []
-    idx = torch.cuda.current_device() if dev.index is None else dev.index
-    devs = [torch.device("cuda", idx)]
-    mesh = meshmod.active_mesh(dev)
-    if mesh is not None:
-        devs += [d for d in mesh.devices if d not in devs]
-    return devs
+    if dev.index is not None:
+        return [dev]
+    cur = torch.cuda.current_device()
+    return [torch.device("cuda", i) for i in
+            [cur] + [i for i in range(torch.cuda.device_count()) if i != cur]]
 
 
 class StreamPool:

@@ -334,10 +334,14 @@ def test_kernels_launch_on_the_highest_numbered_card(dev):
                               "diag", cfg)
 
 
-def test_map_on_cuda_equals_cpu(dev):
+def test_map_on_cuda_equals_cpu(dev, monkeypatch):
     """The map stage on the GPU (all four kernels) equals the same map
-    stage on CPU tensors (all plain versions)."""
+    stage on CPU tensors (all plain versions).  Routing off: on, the map's
+    small fills go to the host engine and no fill kernel need launch
+    (test_routed_map_all_on_the_card holds the routing)."""
     from lesv_tpu_torch.pipeline.mapper import map_all
+
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
 
     rng = np.random.default_rng(4)
     genome = random_genome(rng, 200_000)
@@ -399,9 +403,12 @@ def test_overlapped_map_all_equals_serial(dev, monkeypatch):
     """Four map batches, two in flight, each align_pairs and
     batch_pair_chains call on 8 dispatch workers with a stream each: the
     same M4 records as the serial arm (worker counts 1), and the same
-    launches per kernel and fill launches per shape."""
+    launches per kernel and fill launches per shape.  Routing off, so that
+    every kernel launches (test_routed_map_all_on_the_card holds the
+    routed map, pooled and serial)."""
     from lesv_tpu_torch.pipeline import mapper
 
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
     rng = np.random.default_rng(12)
     genome = random_genome(rng, 300_000)
     store = SeqStore.from_records([("chr1", genome)])
@@ -445,6 +452,9 @@ def test_pooled_align_pairs_equals_serial(dev, monkeypatch):
 
     pairs = align_pairs_world(np.random.default_rng(31))
     monkeypatch.setattr(align_batch, "MONSTER_DIRS_BYTES", MONSTER_DIRS_BYTES)
+    # the CPU arm routes nothing to the host: neither does the card here
+    # (test_routed_align_pairs_on_the_card holds the routing)
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
     cfg = AlignConfig()
     aln = lambda a: None if a is None else (a.qb, a.qe, a.sb, a.se, a.score,
                                              a.ops.tobytes())
@@ -552,3 +562,134 @@ def test_wide_fills_from_many_threads_at_once(dev):
     for outs in runs:
         for c, got in outs:
             _outputs_equal(got, cases[c][2], cases[c][0][2])
+
+
+def _aln_norm(a):
+    """An Alignment as a key, a zero-score empty one read as None: the
+    device path and the host engine give the two forms for a lane with
+    nothing to align, and every caller treats them alike."""
+    if a is None or (len(a.ops) == 0 and a.score <= 0):
+        return None
+    return (a.qb, a.qe, a.sb, a.se, a.score, a.ops.tobytes())
+
+
+@pytest.mark.parametrize("free_end", [False, True])
+def test_routed_align_pairs_on_the_card(dev, monkeypatch, free_end):
+    """On the card, where routing is on by default: ``align_pairs`` routes
+    pairs to the host (``FILL_STATS["host_routed"]``) while the large
+    buckets still launch a fill kernel, and equals routing off up to the
+    form of an empty alignment.  With the cost model kept from routing
+    chunks (an infinitely slow host), the plan is the CPU's under
+    ``LESV_TORCH_HOST_SMALL=1``, and the two are equal exactly."""
+    from lesv_tpu_torch.ops import align_batch
+    from torch_cases import align_pairs_world
+
+    pairs = align_pairs_world(np.random.default_rng(31))
+    cfg = AlignConfig()
+    assert align_batch.host_small_on(dev)
+    _reset_counts()
+    on = align_batch.align_pairs(pairs, cfg, free_end=free_end, device=dev)
+    launches, _, stats = _counts()
+    assert stats["host_routed"] > 0
+    assert launches["fill"] + launches["fill_i16"] > 0
+    assert launches["traceback"] > 0
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
+    off = align_batch.align_pairs(pairs, cfg, free_end=free_end, device=dev)
+    assert [_aln_norm(a) for a in on] == [_aln_norm(a) for a in off]
+
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "1")
+    monkeypatch.setenv("LESV_TORCH_HOST_CELL_RATE", "1e-9")
+    _reset_counts()
+    got = align_batch.align_pairs(pairs, cfg, free_end=free_end, device=dev)
+    assert _counts()[2]["chunks_to_host"] == 0
+    want = align_batch.align_pairs(pairs, cfg, free_end=free_end,
+                                   device="cpu")
+    aln = lambda a: None if a is None else (a.qb, a.qe, a.sb, a.se, a.score,
+                                             a.ops.tobytes())
+    assert [aln(a) for a in got] == [aln(a) for a in want]
+
+
+def test_round_robin_over_the_cards_equals_card_0(dev, monkeypatch):
+    """On a host with several cards, ``LESV_TORCH_MESH=0``: ``align_pairs``
+    and ``map_all`` on plain ``cuda`` deal their chunks to every card in
+    turn and equal the same calls on ``cuda:0``.  Routing off, so that
+    there are more device chunks than cards."""
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.pipeline import mapper
+    from torch_cases import align_pairs_world
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    monkeypatch.setenv("LESV_TORCH_MESH", "0")
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
+    sent = []
+    dispatch = align_batch.banded_align_dispatch
+
+    def spy(*a, device, **kw):
+        sent.append(torch.device(device))
+        return dispatch(*a, device=device, **kw)
+
+    monkeypatch.setattr(align_batch, "banded_align_dispatch", spy)
+    pairs = align_pairs_world(np.random.default_rng(31))
+    cfg = AlignConfig()
+    for free_end in (False, True):
+        sent.clear()
+        got = align_batch.align_pairs(pairs, cfg, free_end=free_end,
+                                      device="cuda")
+        assert {d.index for d in sent} == set(range(n))
+        want = align_batch.align_pairs(pairs, cfg, free_end=free_end,
+                                       device="cuda:0")
+        assert [_aln_norm(a) for a in got] == [_aln_norm(a) for a in want]
+
+    rng = np.random.default_rng(4)
+    genome = random_genome(rng, 200_000)
+    store = SeqStore.from_records([("chr1", genome)])
+    lcfg = LesvConfig()
+    index = KmerIndex.build(store, lcfg.index)
+    reads = []
+    for i in range(6):
+        st = int(rng.integers(0, 180_000))
+        reads.append((f"r{i}", mutate_read(rng, genome[st : st + 12_000],
+                                           err=0.1)))
+    sent.clear()
+    got, _ = mapper.map_all(reads, store, index, lcfg, device="cuda")
+    assert {d.index for d in sent} == set(range(n))
+    want, _ = mapper.map_all(reads, store, index, lcfg, device="cuda:0")
+    assert [_m4_key(m) for m in got] == [_m4_key(m) for m in want]
+
+
+def test_routed_map_all_on_the_card(dev, monkeypatch):
+    """``map_all`` on the card with routing on (the default), pooled and
+    serial: the M4 records of routing off, and the same launches and fills
+    in both arms; the routed fills are counted."""
+    from lesv_tpu_torch.pipeline import mapper
+
+    rng = np.random.default_rng(12)
+    genome = random_genome(rng, 300_000)
+    store = SeqStore.from_records([("chr1", genome)])
+    cfg = LesvConfig()
+    cfg.map.batch_reads = 4
+    index = KmerIndex.build(store, cfg.index)
+    reads = []
+    for i in range(12):
+        st = int(rng.integers(0, 280_000))
+        r = mutate_read(rng, genome[st : st + int(rng.integers(2_000,
+                                                               15_000))],
+                        err=0.1)
+        reads.append((f"r{i}", r))
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
+    want, _ = mapper.map_all(reads, store, index, cfg, device=dev)
+    monkeypatch.delenv("LESV_TORCH_HOST_SMALL")
+    arms = []
+    for serial in (False, True):
+        if serial:
+            _serial_workers(monkeypatch)
+        _reset_counts()
+        got, _ = mapper.map_all(reads, store, index, cfg, device=dev)
+        torch.cuda.synchronize()
+        assert [_m4_key(m) for m in got] == [_m4_key(m) for m in want]
+        arms.append(_counts())
+    assert arms[0] == arms[1]
+    assert arms[0][2]["host_routed"] > 0
+    assert arms[0][0]["chain"] > 0
