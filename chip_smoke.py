@@ -72,14 +72,21 @@ Phases, each printing one JSON line:
    ``cuda`` with ``LESV_TORCH_MESH=0`` (whole chunks dealt to the cards in
    turn) must equal the map on ``cuda:0`` and under a mesh of every card,
    with the fill chunks each card took (one card: all on it);
-9. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
+9. ``paths`` (``phase_paths``): the chain fetch on phase ``map``'s 512
+   reads, the sliced fetch (``chain_torch.chain_lanes_sliced``, the
+   pipeline's) and the full one in turns (S, A, S, A, the second pair
+   under ``torch.profiler`` for the bytes read back): read seeding and
+   chaining, equal chains and totals; the same for ``batch_pair_chains``
+   on the reads' candidate windows; then ``map_read`` of the first 8
+   reads, each equal to ``map_batch``'s records for it;
+10. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
    reference with 5 DEL + 5 INS planted and reads at coverage 10, once
    with ``LocalExchange`` in this process and once as two spawned
    processes joined by ``TorchExchange`` over gloo (a ``file://``
    rendezvous under ``build/smoke_dist``), both on the cards present: the call
    lists must be equal field for field, on every rank.  A rank that fails
    or outlasts ``DIST_JOIN_S`` fails the phase;
-10. ``run``: reads to a VCF through
+11. ``run``: reads to a VCF through
    ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on an
    8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
    coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
@@ -142,6 +149,7 @@ DIST_GENOME_BP = 4_000_000
 DIST_N_SV = 5
 DIST_JOIN_S = 600           # a rank still alive after this is killed
 OVERLAP_READS = 2_048       # four production batches of 512
+PATHS_MAP_READ = 8          # reads phase paths maps one by one
 SPANS_NOTE = ("span totals sum over the worker threads, so a total can "
               "exceed the wall time")
 
@@ -956,19 +964,26 @@ def phase_mesh(rng, world):
 
 
 @contextlib.contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` for the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+@contextlib.contextmanager
 def serial_workers():
     """The serial arm: one dispatch worker and one map batch at a time (the
     worker counts the tests patch the same way)."""
     from lesv_tpu_torch.ops import align_batch
     from lesv_tpu_torch.pipeline import mapper
 
-    saved = align_batch._n_dispatch_workers, mapper._map_overlap_depth
-    align_batch._n_dispatch_workers = lambda device: 1
-    mapper._map_overlap_depth = lambda device: 1
-    try:
+    with patched(align_batch, "_n_dispatch_workers", lambda device: 1), \
+            patched(mapper, "_map_overlap_depth", lambda device: 1):
         yield
-    finally:
-        align_batch._n_dispatch_workers, mapper._map_overlap_depth = saved
 
 
 @contextlib.contextmanager
@@ -997,7 +1012,8 @@ def busy_time(fn):
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity); returns
     (its result, wall seconds, summed kernel seconds, seconds in which the
     card ran a kernel, copy or memset: the union of their intervals over
-    every stream)."""
+    every stream, bytes copied from the card to the host: the ``bytes`` of
+    the trace's device-to-host copies, None if the trace has none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1023,7 +1039,11 @@ def busy_time(fn):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return out, wall, kernel_us * 1e-6, busy_us * 1e-6
+    d2h = [e["args"]["bytes"] for e in events
+           if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")
+           and "bytes" in e.get("args", {})]
+    return (out, wall, kernel_us * 1e-6, busy_us * 1e-6,
+            sum(d2h) if d2h else None)
 
 
 def _m4_key(m):
@@ -1069,7 +1089,7 @@ def phase_overlap(world):
         ctx = serial_workers() if kind[0] == "S" else contextlib.nullcontext()
         with ctx:
             if kind.endswith("traced"):
-                m4s, wall, kernel_s, busy_s = busy_time(map_arm)
+                m4s, wall, kernel_s, busy_s, _ = busy_time(map_arm)
             else:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1361,6 +1381,167 @@ def phase_route(world):
         raise AssertionError(f"round-robin chunks went to {rr_cards}, not "
                              f"to every card")
     return arms[1][0]["launches"]
+
+
+def _chain_keys(lanes):
+    return [[(c.score, c.qbeg, c.qend, c.sbeg, c.send, c.anchors.tobytes())
+             for c in lane] for lane in lanes]
+
+
+def _timed_arm(fn, traced: bool):
+    """(result, wall seconds, bytes copied to the host or None): the card
+    synchronised around ``fn``; traced arms run under ``busy_time``."""
+    import torch
+
+    if traced:
+        out, wall, _, _, d2h = busy_time(fn)
+        return out, wall, d2h
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, None
+
+
+def full_fetch():
+    """Context in which the pipeline's read and pair chaining fetch the
+    chain outputs in full (``chain_lanes`` at the same live slots: six
+    arrays at full width) instead of ``chain_lanes_sliced``'s one sliced,
+    narrowed readback."""
+    from lesv_tpu_torch.ops import chain_torch
+    from lesv_tpu_torch.pipeline import batch_align, mapper
+
+    def full(qoff, soff, valid, total, M, length, cfg, J=64, q16=False,
+             s16=False):
+        return chain_torch.chain_lanes(qoff, soff, valid, length, cfg, J=J,
+                                       Mp=chain_torch._shrink_M(total, M))
+
+    st = contextlib.ExitStack()
+    st.enter_context(patched(mapper, "chain_lanes_sliced", full))
+    st.enter_context(patched(batch_align, "chain_lanes_sliced", full))
+    return st
+
+
+def phase_paths(world):
+    """The chain fetch on the card, on phase map's 512 reads:
+    1. read seeding + chaining (``mapper._chains_by_read_device``) with the
+       sliced fetch (S, the default) and the full fetch (A,
+       :func:`full_fetch`) in turns S, A, S, A, the second pair traced for
+       the bytes read back; equal chains lane for lane and equal totals;
+    2. the same for ``batch_pair_chains`` on those reads' candidate
+       windows, routing off;
+    3. ``map_read`` of each of the first ``PATHS_MAP_READ`` reads: the
+       records ``map_batch`` gives that read among them.
+    Every arm prints its wall seconds, launches and (traced) bytes read
+    back.  Returns the launches of the S arms and of part 3, summed."""
+    import numpy as np
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.io.fasta import revcomp
+    from lesv_tpu_torch.pipeline import batch_align, mapper
+
+    reads, store, index, cfg = (world["reads"], world["store"],
+                                world["index"], world["cfg"])
+    batch = [(i, r) for i, (_, r) in enumerate(reads)]
+    launches = {k: 0 for k in _ext.LAUNCHES}
+
+    def in_turns(part, run, check):
+        """Run the arms S, A, S, A (the last two traced) and hold every
+        arm's result against the first's with ``check``."""
+        results = []
+        for t, kind in enumerate(("S", "A", "S", "A")):
+            _ext.reset_launches()
+            with (full_fetch() if kind == "A" else contextlib.nullcontext()):
+                out, wall, d2h = _timed_arm(run, t >= 2)
+            emit(dict(phase="paths", part=part, arm=kind, turn=t,
+                      traced=t >= 2, wall_s=wall, d2h_bytes=d2h,
+                      launches=dict(_ext.LAUNCHES)))
+            if not _ext.LAUNCHES["chain"]:
+                raise AssertionError(f"paths {part}: arm {kind} launched no "
+                                     "chain kernel")
+            if kind == "S":
+                for k, n in _ext.LAUNCHES.items():
+                    launches[k] += n
+            results.append((kind, out, wall, d2h))
+        for kind, out, _, _ in results[1:]:
+            if not check(out, results[0][1]):
+                raise AssertionError(f"paths {part}: arm {kind} differs "
+                                     f"from arm {results[0][0]}")
+        mean = {k: sum(w for a, _, w, _ in results if a == k) / 2
+                for k in ("S", "A")}
+        d2h = {a: b for a, _, _, b in results[2:]}
+        print(f"paths: {part} sliced fetch {mean['S']:.3f} s, full fetch "
+              f"{mean['A']:.3f} s (mean of two arms each); bytes read back "
+              f"{d2h['S']} against {d2h['A']} (traced arms)", flush=True)
+        return results
+
+    def same_chunks(a, b):
+        return (a[0] == b[0] and len(a[1]) == len(b[1])
+                and all(np.array_equal(x, y) for x, y in zip(a[1], b[1])))
+
+    def with_totals(mod, name, run):
+        """``run()``'s result and the totals every call of ``mod.name``
+        returned (its second output), in call order."""
+        totals = []
+        fn = getattr(mod, name)
+
+        def spy(*a, **kw):
+            out = fn(*a, **kw)
+            totals.append(np.asarray(out[-1]).copy())
+            return out
+
+        with patched(mod, name, spy):
+            return run(), totals
+
+    # 1. read seeding + chaining
+    def read_chains():
+        by_read, totals = with_totals(
+            mapper, "_seed_chain_chunk",
+            lambda: mapper._chains_by_read_device(batch, index, cfg,
+                                                  "cuda"))
+        return [_chain_keys([r[0], r[1]]) for r in by_read], totals, by_read
+
+    res = in_turns("read_chains", read_chains,
+                   lambda a, b: same_chunks(a[:2], b[:2]))
+    by_read = res[0][1][2]
+
+    # 2. pair seeding + chaining on the reads' candidate windows
+    wtasks = []
+    for (_, read), cbd in zip(batch, by_read):
+        for w in mapper.find_candidate_windows(cbd, index, len(read), cfg):
+            wtasks.append((read if w.qdir == mapper.FWD else revcomp(read),
+                           store.get(w.sid, w.sfrom, w.sto)))
+
+    def pair_chains():
+        with host_routing(False):
+            out, totals = with_totals(
+                batch_align, "pair_matches_batch",
+                lambda: batch_align.batch_pair_chains(wtasks, cfg,
+                                                      device="cuda"))
+        return _chain_keys(out), sorted(totals, key=lambda t: t.tobytes())
+
+    res = in_turns("pair_chains", pair_chains, same_chunks)
+    emit(dict(phase="paths", part="pair_chains", pairs=len(wtasks),
+              chunks=len(res[0][1][1])))
+
+    # 3. map_read against map_batch
+    _ext.reset_launches()
+    with host_routing(False):
+        head = batch[:PATHS_MAP_READ]
+        want = [_m4_key(m) for m in mapper.map_batch(head, store, index, cfg,
+                                                     device="cuda")]
+        got = [_m4_key(m) for qid, r in head
+               for m in mapper.map_read(qid, r, store, index, cfg,
+                                        device="cuda")]
+    for k, n in _ext.LAUNCHES.items():
+        launches[k] += n
+    emit(dict(phase="paths", part="map_read", reads=len(head), m4=len(got),
+              equal_map_batch=sorted(got) == sorted(want),
+              launches=dict(_ext.LAUNCHES)))
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError("paths map_read: records differ from "
+                             "map_batch's")
+    return launches
 
 
 def _dist_rank(rank: int, world_size: int, job: str) -> None:
@@ -1732,6 +1913,7 @@ def main() -> int:
         mesh_launches = phase_mesh(rng, map_world)
         overlap_launches = phase_overlap(map_world)
     route_launches = phase_route(map_world)
+    paths_launches = phase_paths(map_world)
     del map_world
     with host_routing(False):
         dist_launches = phase_dist(rng)
@@ -1762,7 +1944,8 @@ def main() -> int:
              launches_mesh_phase=mesh_launches[k],
              launches_overlap_phase=overlap_launches[k],
              launches_dist_phase=dist_launches[k],
-             launches_route_phase=route_launches[k], library_ms=None,
+             launches_route_phase=route_launches[k],
+             launches_paths_phase=paths_launches[k], library_ms=None,
              **stats[k])
         for k in ("fill", "fill_i16", "chain", "traceback")]})
     emit({"ok": True, "device": {"platform": "gpu",

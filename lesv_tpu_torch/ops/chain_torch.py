@@ -6,6 +6,12 @@ plain PyTorch version (:func:`chain_scan_plain`, the J-lookback recurrence
 of ``chain_jax._chain_scan_kernel`` over a sliding window of views) and a
 hand-written CUDA kernel (``csrc/chain.cu``).  Seeds travel as qoff int32,
 soff int64 holding unsigned 32-bit subject offsets, valid bool.
+
+Two fetches bring the outputs to the host: :func:`fetch_chain_arrays`
+(the six arrays at full width; :func:`chain_lanes`) and
+:func:`fetch_chain_sliced` (cut to the live slots on the device, narrowed,
+one readback; v and valid rebuilt on the host).  The pipeline's seeding
+and chaining take the second, through :func:`chain_lanes_sliced`.
 """
 
 from __future__ import annotations
@@ -125,6 +131,15 @@ def chain_scan(qs, ss, vs, J: int, length: int, max_dq: int, max_dr: int,
     raise ValueError(f"chain_scan: unsupported device {qs.device}")
 
 
+def sort_scan(qoff, soff, valid, J: int, length: int, max_dq: int,
+              max_dr: int, bw: int):
+    """Per-lane seed sort + chain scan on the device of ``qoff``, nothing
+    read back: (f, p_rel, v, qs, ss, vs)."""
+    qs, ss, vs = sort_seeds_device(qoff, soff, valid)
+    f, p_rel, v = chain_scan(qs, ss, vs, J, length, max_dq, max_dr, bw)
+    return f, p_rel, v, qs, ss, vs
+
+
 def fetch_chain_arrays(f, p_rel, v, qs, ss, vs):
     """Device -> host fetch of the chain-DP outputs; p as the absolute
     predecessor index (-1 = none)."""
@@ -138,6 +153,113 @@ def fetch_chain_arrays(f, p_rel, v, qs, ss, vs):
     p = np.where(p_rel > 0, idx - p_rel, -1)
     p = np.where(p >= 0, p, -1)
     return f, p, v, qs, ss, vs
+
+
+def chain_batch_device(qoff, soff, valid, length: int,
+                       cfg: ChainConfig | None = None, J: int = 64,
+                       Mp: int | None = None):
+    """Sort + chain scan of (B, M) seed tensors on their device, then the
+    host arrays (f, p, v, qoff, soff, valid), p as the absolute predecessor
+    index (-1 = none).  ``Mp`` keeps the first Mp slots (valid slots are a
+    prefix of the seeding expansion)."""
+    cfg = cfg or ChainConfig()
+    if Mp is not None:
+        qoff, soff, valid = qoff[:, :Mp], soff[:, :Mp], valid[:, :Mp]
+    with profiling.trace("chain/sort_scan"):
+        out = sort_scan(qoff, soff, valid, J, length, cfg.max_dist_qry,
+                        cfg.max_dist_ref, cfg.max_band_width)
+    with profiling.trace("chain/fetch"):
+        return fetch_chain_arrays(*out)
+
+
+def _shrink_M(total: np.ndarray, M: int, lo: int = 256) -> int:
+    """x2-ladder slot count covering every lane's (budget-clamped) match
+    count; match buffers beyond it hold only invalid slots.  Coarse
+    steps keep the number of (remotely) compiled chain-scan shapes
+    small while bounding fetched dead slots at 2x."""
+    need = int(np.minimum(np.asarray(total), M).max(initial=0))
+    Mp = lo
+    while Mp < need:
+        Mp *= 2
+    return min(Mp, M)
+
+
+def slice_chain(f, p_rel, qs, ss, Mp: int, q16: bool, s16: bool):
+    """The chain-DP outputs cut to their first ``Mp`` slots on their device
+    for the fetch (``chain_jax._slice_chain_jit`` without ``v``): f int32,
+    p_rel int16 (|p_rel| <= J <= 128), qs and ss int16 where ``q16`` /
+    ``s16`` say their valid values are below 2^16, else int32 (ss holds
+    unsigned 32-bit offsets).  Narrowing keeps the low bits, so the host
+    reads the 16-bit values as uint16 and the 32-bit ss as uint32."""
+    qs = qs[:, :Mp].to(torch.int16 if q16 else torch.int32)
+    ss = ss[:, :Mp].to(torch.int16 if s16 else torch.int32)
+    return f[:, :Mp], p_rel[:, :Mp].to(torch.int16), qs, ss
+
+
+_NP_OF = {torch.int32: np.int32, torch.int16: np.int16}
+
+
+def _read_back(parts):
+    """Several tensors of one device in ONE device -> host copy: their bytes
+    packed on the device (widest type first, so every part stays aligned),
+    split into numpy arrays of their types and shapes on the host."""
+    order = sorted(range(len(parts)), key=lambda i: -parts[i].element_size())
+    buf = torch.cat([parts[i].reshape(-1).view(torch.uint8)
+                     for i in order]).cpu().numpy()
+    out = [None] * len(parts)
+    o = 0
+    for i in order:
+        t = parts[i]
+        n = t.numel() * t.element_size()
+        out[i] = buf[o : o + n].view(_NP_OF[t.dtype]).reshape(t.shape)
+        o += n
+    return out
+
+
+def fetch_chain_sliced(f, p_rel, qs, ss, total: np.ndarray, M: int,
+                       Mp: int, q16: bool = False, s16: bool = False):
+    """The sliced fetch of ``chain_jax.fetch_chain_sliced``: the first
+    ``Mp`` slots of (f, p_rel, qs, ss), narrowed by :func:`slice_chain`,
+    in one readback; then on the host v by ``native.chain_v_batch`` (its
+    invalid-tail values are never read) and valid from ``total``, since
+    the sort puts a lane's min(total, M) valid slots first.  Returns host
+    (f, p, v, qs, ss, valid), p as the absolute predecessor index."""
+    f, p16, qs, ss = _read_back(slice_chain(f, p_rel, qs, ss, Mp, q16, s16))
+    qs = (qs.view(np.uint16) if q16 else qs).astype(np.int64)
+    ss = ss.view(np.uint16 if s16 else np.uint32).astype(np.int64)
+    v = native.chain_v_batch(f, p16)
+    idx = np.arange(Mp, dtype=np.int64)[None, :]
+    p = np.where(p16 > 0, idx - p16, -1)
+    p = np.where(p >= 0, p, -1)
+    n = np.minimum(np.asarray(total)[: f.shape[0]], M)
+    return f, p, v, qs, ss, idx < n[:, None]
+
+
+def chain_lanes_sliced(qoff, soff, valid, total: np.ndarray, M: int,
+                       length: int, cfg: ChainConfig, J: int = 64,
+                       q16: bool = False, s16: bool = False
+                       ) -> list[list[Chain]]:
+    """Chaining of (B, M) seed tensors whose per-lane match counts
+    ``total`` (host) are known: sort + chain scan on their device at the
+    live slots Mp (:func:`_shrink_M`), one sliced readback
+    (:func:`fetch_chain_sliced`), host extraction per lane."""
+    Mp = _shrink_M(total, M)
+    with profiling.trace("chain/sort_scan"):
+        f, p_rel, _, qs, ss, _ = sort_scan(
+            qoff[:, :Mp], soff[:, :Mp], valid[:, :Mp], J, length,
+            cfg.max_dist_qry, cfg.max_dist_ref, cfg.max_band_width)
+    with profiling.trace("chain/fetch"):
+        out = fetch_chain_sliced(f, p_rel, qs, ss, total, M, Mp, q16, s16)
+    return extract_lanes(*out, length, cfg)
+
+
+def extract_lanes(f, p, v, qs, ss, vs, length: int,
+                  cfg: ChainConfig) -> list[list[Chain]]:
+    """Host chain extraction for every lane of fetched DP arrays."""
+    with profiling.trace("chain/extract"):
+        return [extract_chains_from_fp(f[b], p[b], v[b], qs[b], ss[b],
+                                       vs[b], length, cfg)
+                for b in range(f.shape[0])]
 
 
 def extract_chains_from_fp(
@@ -184,18 +306,7 @@ def chain_lanes(qoff, soff, valid, length: int,
                 cfg: ChainConfig | None = None, J: int = 64,
                 Mp: int | None = None) -> list[list[Chain]]:
     """Full batched chaining of (B, M) seed tensors: sort + chain scan on
-    their device, host extraction per lane.  ``Mp`` keeps the first Mp
-    slots (valid slots are a prefix of the seeding expansion)."""
+    their device (:func:`chain_batch_device`), host extraction per lane."""
     cfg = cfg or ChainConfig()
-    if Mp is not None:
-        qoff, soff, valid = qoff[:, :Mp], soff[:, :Mp], valid[:, :Mp]
-    with profiling.trace("chain/sort_scan"):
-        qs, ss, vs = sort_seeds_device(qoff, soff, valid)
-        f, p_rel, v = chain_scan(qs, ss, vs, J, length, cfg.max_dist_qry,
-                                 cfg.max_dist_ref, cfg.max_band_width)
-    with profiling.trace("chain/fetch"):
-        f, p, v, qs, ss, vs = fetch_chain_arrays(f, p_rel, v, qs, ss, vs)
-    with profiling.trace("chain/extract"):
-        return [extract_chains_from_fp(f[b], p[b], v[b], qs[b], ss[b],
-                                       vs[b], length, cfg)
-                for b in range(f.shape[0])]
+    return extract_lanes(*chain_batch_device(qoff, soff, valid, length, cfg,
+                                             J=J, Mp=Mp), length, cfg)

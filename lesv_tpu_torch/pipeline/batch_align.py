@@ -29,7 +29,7 @@ from lesv_tpu_torch.ops.align_batch import global_align_pairs_host
 from lesv_tpu_torch.ops.align_np import Alignment
 from lesv_tpu_torch.ops.anchored import anchored_align_many
 from lesv_tpu_torch.ops.chain import Chain
-from lesv_tpu_torch.ops.chain_torch import chain_lanes
+from lesv_tpu_torch.ops.chain_torch import chain_lanes_sliced
 from lesv_tpu_torch.ops.pairseed import mem_anchors, pair_chains
 from lesv_tpu_torch.ops.pairseed_torch import (
     _pad_pow2_dim,
@@ -73,18 +73,6 @@ def _host_route_pairs(pairs, device) -> set[int]:
     return out
 
 
-def _shrink_M(total: np.ndarray, M: int, lo: int = 256) -> int:
-    """x2-ladder slot count covering every lane's (budget-clamped) match
-    count; match buffers beyond it hold only invalid slots.  Coarse
-    steps keep the number of (remotely) compiled chain-scan shapes
-    small while bounding fetched dead slots at 2x."""
-    need = int(np.minimum(np.asarray(total), M).max(initial=0))
-    Mp = lo
-    while Mp < need:
-        Mp *= 2
-    return min(Mp, M)
-
-
 def batch_pair_chains(
     pairs: list[tuple[np.ndarray, np.ndarray]],
     cfg: LesvConfig,
@@ -124,9 +112,9 @@ def batch_pair_chains(
                 chunk, k=k, q_stride=stride, max_occ=occ, M=M, Qb=Qb,
                 Sb=Sb, device=device)
         with profiling.trace("pairchain_device"):
-            lanes = chain_lanes(qoff, soff, valid, k, pcfg,
-                                J=cfg.chain.lookback,
-                                Mp=_shrink_M(total, M))
+            lanes = chain_lanes_sliced(qoff, soff, valid, total, M, k,
+                                       pcfg, J=cfg.chain.lookback,
+                                       q16=Qb < 65536, s16=Sb < 65536)
         for j, i in enumerate(cidx):
             out[i] = host_chains(*pairs[i]) if total[j] > M else lanes[j]
 

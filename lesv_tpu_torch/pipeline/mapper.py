@@ -23,7 +23,7 @@ from lesv_tpu_torch.io.fasta import revcomp
 from lesv_tpu_torch.io.seqstore import SeqStore
 from lesv_tpu_torch.ops.anchored import anchored_align_many
 from lesv_tpu_torch.ops.chain import Chain, extract_chains_np
-from lesv_tpu_torch.ops.chain_torch import chain_lanes
+from lesv_tpu_torch.ops.chain_torch import chain_lanes_sliced
 from lesv_tpu_torch.ops.cigar import match_mask
 from lesv_tpu_torch.ops.pairseed import mem_anchors
 from lesv_tpu_torch.ops.pairseed_torch import _pad_pow2_dim
@@ -33,7 +33,7 @@ from lesv_tpu_torch.ops.seeding_torch import (
     seed_matches_batch,
 )
 from lesv_tpu_torch.parallel.streams import StreamPool
-from lesv_tpu_torch.pipeline.batch_align import _shrink_M, batch_pair_chains
+from lesv_tpu_torch.pipeline.batch_align import batch_pair_chains
 from lesv_tpu_torch.utils import profiling
 from lesv_tpu_torch.utils.logging import log
 
@@ -178,8 +178,9 @@ def _seed_chain_chunk(reads, index, cfg, M, Qmax, device):
             reads, index, cfg.seeding, M=M, Qmax=Qmax, device=device)
     total = total.cpu().numpy()
     with profiling.trace("map/chain_device"):
-        lanes = chain_lanes(qoff, soff, valid, index.k, cfg.chain,
-                            J=cfg.chain.lookback, Mp=_shrink_M(total, M))
+        lanes = chain_lanes_sliced(qoff, soff, valid, total, M, index.k,
+                                   cfg.chain, J=cfg.chain.lookback,
+                                   q16=Qmax < 65536)
     return lanes, total
 
 
@@ -317,6 +318,19 @@ def map_batch(
         lst.sort(key=lambda m: -m.score)
         out.extend(lst)
     return out
+
+
+def map_read(
+    qid: int,
+    read: np.ndarray,
+    store: SeqStore,
+    index: KmerIndex,
+    cfg: LesvConfig | None = None,
+    device="cuda",
+) -> list[M4]:
+    """Map one read against the indexed subject store on ``device``;
+    return M4 records."""
+    return map_batch([(qid, read)], store, index, cfg, device=device)
 
 
 def query_volumes(sizes: list[int], max_res: int) -> list[list[int]]:

@@ -13,7 +13,8 @@ on top of the same per-stage timers:
   mean_s}}; `dump_json(path)` writes it.
 * device profiling: `device_trace(logdir)` wraps `torch.profiler.profile`
   (CPU and, with a GPU, CUDA activities; a Chrome trace) when
-  `LESV_TORCH_PROFILE=dir` or used explicitly.
+  `LESV_TORCH_PROFILE=dir` or used explicitly; `annotate(name)` names a
+  region inside it.
 """
 
 from __future__ import annotations
@@ -95,3 +96,11 @@ def device_trace(logdir: str | None = None):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named region visible in device profiles (``device_trace``): a
+    ``torch.profiler.record_function`` context manager."""
+    from torch.profiler import record_function
+
+    return record_function(name)

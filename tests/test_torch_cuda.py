@@ -693,3 +693,124 @@ def test_routed_map_all_on_the_card(dev, monkeypatch):
     assert arms[0] == arms[1]
     assert arms[0][2]["host_routed"] > 0
     assert arms[0][0]["chain"] > 0
+
+
+def _budget_world():
+    """The world of test_seed_budget_retry_on_the_card_equals_cpu: a
+    200 kb genome with tandem arrays, 15 reads, and a seed budget M that
+    some reads overflow at M but not 2M and some at 2M."""
+    from lesv_tpu_torch.ops.seeding_torch import seed_matches_batch
+    from lesv_tpu_torch.sim import repeat_genome
+
+    rng = np.random.default_rng(8)
+    genome, trf = repeat_genome(rng, 200_000, n_tandem=3,
+                                array_range=(4_000, 6_000), n_dups=2)
+    store = SeqStore.from_records([("chr1", genome)])
+    cfg = LesvConfig()
+    index = KmerIndex.build(store, cfg.index)
+    batch = []
+    for i in range(14):
+        st = int(rng.integers(0, 185_000))
+        n = int(rng.integers(1_500, 14_000))
+        batch.append((i, mutate_read(rng, genome[st : st + n], err=0.1)))
+    a, b = trf[0]
+    batch.append((14, mutate_read(rng, genome[a:b], err=0.05)))
+    _, _, _, total = seed_matches_batch([r for _, r in batch], index,
+                                        cfg.seeding, M=1 << 17, device="cpu")
+    per_read = total.numpy()[: 2 * len(batch)].reshape(-1, 2).max(axis=1)
+    cfg.map.seed_match_budget = int(np.sort(per_read)[len(batch) // 2])
+    return genome, store, index, cfg, batch
+
+
+def _chains_key(by_read):
+    return [{d: [(c.score, c.qbeg, c.qend, c.sbeg, c.send,
+                  c.anchors.tobytes()) for c in cs] for d, cs in r.items()}
+            for r in by_read]
+
+
+def _full_fetch(qoff, soff, valid, total, M, length, cfg, J=64, q16=False,
+                s16=False):
+    """``chain_lanes_sliced``'s arguments, chained at the same live slots
+    but fetched in full (``chain_lanes``)."""
+    return chain_torch.chain_lanes(qoff, soff, valid, length, cfg, J=J,
+                                   Mp=chain_torch._shrink_M(total, M))
+
+
+def test_sliced_read_chains_on_the_card_equal_cpu(dev, monkeypatch):
+    """On the card read seeding and chaining (at M and at 2M in the retry)
+    fetch through ``fetch_chain_sliced``; their chains equal the CPU's and
+    the full fetch's on the card, and ``map_batch`` with 8 dispatch
+    workers gives the same records with either fetch."""
+    from lesv_tpu_torch.ops import align_batch
+    from lesv_tpu_torch.pipeline import mapper
+
+    _, store, index, cfg, batch = _budget_world()
+    M = cfg.map.seed_match_budget
+    budgets = []
+    chunk = mapper._seed_chain_chunk
+
+    def spy(reads, index, cfg, M, Qmax, device):
+        budgets.append(M)
+        return chunk(reads, index, cfg, M, Qmax, device)
+
+    monkeypatch.setattr(mapper, "_seed_chain_chunk", spy)
+    got = _chains_key(mapper._chains_by_read_device(batch, index, cfg, dev))
+    assert M in budgets and 2 * M in budgets
+    want = _chains_key(mapper._chains_by_read_device(batch, index, cfg,
+                                                     "cpu"))
+    assert got == want
+    assert align_batch._n_dispatch_workers(dev) == 8
+    sliced = [_m4_key(m) for m in mapper.map_batch(batch, store, index, cfg,
+                                                    device=dev)]
+    monkeypatch.setattr(mapper, "chain_lanes_sliced", _full_fetch)
+    assert _chains_key(mapper._chains_by_read_device(batch, index, cfg,
+                                                     dev)) == want
+    assert [_m4_key(m) for m in mapper.map_batch(batch, store, index, cfg,
+                                                  device=dev)] == sliced
+
+
+def test_sliced_pair_chains_on_the_card_equal_cpu(dev, monkeypatch):
+    """``batch_pair_chains`` on the card, 8 dispatch workers, routing off,
+    a pair budget that some pairs overflow: the sliced fetch (16-bit
+    offsets) gives the chains of the CPU and of the full fetch."""
+    from lesv_tpu_torch.pipeline import batch_align
+
+    genome, _, _, cfg, batch = _budget_world()
+    rng = np.random.default_rng(9)
+    pairs = []
+    for _, read in batch:
+        a = int(rng.integers(0, len(genome) - 20_000))
+        pairs.append((read, genome[a : a + len(read) + 3_000]))
+        pairs.append((read[: len(read) // 2], read[len(read) // 4 :]))
+    cfg.map.pair_match_budget = 2_048
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
+    key = lambda out: [[(c.score, c.qbeg, c.qend, c.sbeg, c.send,
+                         c.anchors.tobytes()) for c in cs] for cs in out]
+    got = key(batch_align.batch_pair_chains(pairs, cfg, device=dev))
+    want = key(batch_align.batch_pair_chains(pairs, cfg, device="cpu"))
+    assert got == want and sum(1 for cs in got if cs) >= 10
+    monkeypatch.setattr(batch_align, "chain_lanes_sliced", _full_fetch)
+    assert key(batch_align.batch_pair_chains(pairs, cfg, device=dev)) == want
+
+
+@pytest.mark.parametrize("q16,s16", [(True, False), (True, True),
+                                     (False, False)])
+def test_fetch_chain_sliced_on_the_card_equals_cpu(dev, q16, s16):
+    """The sliced fetch's narrowing on the card (int32 -> int16 for 16-bit
+    offsets, int64 -> int32 for subject offsets up to 2^32 - 2) keeps the
+    low bits as on the CPU: every output equals the CPU's."""
+    rng = np.random.default_rng(21)
+    J, M = 64, 1025
+    qoff, soff, valid = chain_edge_lanes(rng, J, M)
+    if s16:
+        soff = np.where(valid, soff - (0xFFFFFFFE - 60_000), soff)
+    total = valid.sum(1)
+    outs = []
+    for d in (dev, "cpu"):
+        f, p_rel, _, qs, ss, _ = chain_torch.sort_scan(
+            *(torch.from_numpy(x).to(d) for x in (qoff, soff, valid)), J, 15,
+            5000, 5000, 500)
+        outs.append(chain_torch.fetch_chain_sliced(f, p_rel, qs, ss, total,
+                                                   M, 1024, q16, s16))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
