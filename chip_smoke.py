@@ -79,14 +79,28 @@ Phases, each printing one JSON line:
    chaining, equal chains and totals; the same for ``batch_pair_chains``
    on the reads' candidate windows; then ``map_read`` of the first 8
    reads, each equal to ``map_batch``'s records for it;
-10. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
+10. ``volumes`` (``phase_volumes``): the subject-volume loop
+   (``mapper.map_all_volumes``), from a generator of its own.  V1: 512
+   reads (mean 12 kb, 10% error; one with a 1.6 kb stretch at 35% error,
+   for the int32 fill) against 8 chromosomes of 8 Mb (20 DEL +
+   20 INS) in 4 volumes of 16 Mb, map batches of 128 (two in flight): the
+   M4 records equal ``map_all``'s against one index of the whole reference,
+   every kernel launches, the device bytes allocated after each volume do
+   not grow, and a resume after one part file is removed rewrites that
+   part and gives the same records.  V2: one volume holding an all-N
+   chromosome of 2.2 Gb and an 8 Mb one; 64 reads of the second map to the
+   same records as against it alone (all fields but the subject id), and
+   the index's largest position and the largest live seed offset lie past
+   2^31.  Per volume: index, upload and map seconds, the device index's
+   bytes;
+11. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
    reference with 5 DEL + 5 INS planted and reads at coverage 10, once
    with ``LocalExchange`` in this process and once as two spawned
    processes joined by ``TorchExchange`` over gloo (a ``file://``
    rendezvous under ``build/smoke_dist``), both on the cards present: the call
    lists must be equal field for field, on every rank.  A rank that fails
    or outlasts ``DIST_JOIN_S`` fails the phase;
-11. ``run``: reads to a VCF through
+12. ``run``: reads to a VCF through
    ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on an
    8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
    coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
@@ -104,8 +118,8 @@ Phases, each printing one JSON line:
    shapes after map must be equal.  Host-clock spans sum over the worker
    threads, so a span's total can exceed the wall time.
 
-Phases ``map``, ``mesh``, ``overlap`` and ``dist`` run with the routing
-off (``host_routing(False)``), so that they compare with the runs before
+Phases ``map``, ``mesh``, ``overlap``, ``volumes`` and ``dist`` run with
+the routing off (``host_routing(False)``), so that they compare with the runs before
 it; phase ``run`` runs the default, routing on.
 
 Then the card's ``nvidia-smi`` line, the kernel table (the traceback at
@@ -150,6 +164,18 @@ DIST_N_SV = 5
 DIST_JOIN_S = 600           # a rank still alive after this is killed
 OVERLAP_READS = 2_048       # four production batches of 512
 PATHS_MAP_READ = 8          # reads phase paths maps one by one
+# phase volumes: V1 8 chromosomes of 8 Mb in volumes of 16 Mb (4 volumes),
+# 512 reads in map batches of 128 (two in flight); V2 an all-N chromosome
+# of 2.2 Gb before an 8 Mb one, so that every position of the second lies
+# past 2^31 in one volume
+VOL_CHROMS = 8
+VOL_CHROM_BP = 8_000_000
+VOL_RES = 16_000_000
+VOL_READS = 512
+VOL_BATCH_READS = 128
+VOL_N_BP = 2_200_000_000
+VOL_FAR_READS = 64
+VOL_FAR_EDGE = 20_000       # V2's reads start and end this far from the ends
 SPANS_NOTE = ("span totals sum over the worker threads, so a total can "
               "exceed the wall time")
 
@@ -1544,6 +1570,222 @@ def phase_paths(world):
     return launches
 
 
+def _sans_sid(m):
+    """An M4 record's fields but its subject id."""
+    k = _m4_key(m)
+    return k[:2] + k[3:]
+
+
+def phase_volumes():
+    """The subject-volume loop (``mapper.map_all_volumes``) on the card,
+    with a generator of its own (seed 10), so that the phases after it
+    see the data they saw before it was added:
+
+    V1. ``VOL_CHROMS`` random chromosomes of ``VOL_CHROM_BP`` (20 DEL and
+       20 INS planted over them), ``VOL_READS`` reads (mean 12 kb, 10%
+       error, each inside one chromosome; the last with a 1.6 kb stretch
+       at 35% error, so that the int32 fill launches) in map batches of
+       ``VOL_BATCH_READS``: ``map_all`` against one index of the whole
+       reference, then ``map_all_volumes`` in volumes of ``VOL_RES``
+       (checkpointed); equal M4 records.  Every kernel must launch, and the
+       device bytes allocated once a volume is released must not grow from
+       one volume to the next.  Then one part file is removed and the call
+       resumed: the same records, that part written again.
+    V2. One volume of an all-N chromosome of ``VOL_N_BP`` (the store made
+       from its fields: packed zeros and one ambiguous run) and an 8 Mb
+       random one; ``VOL_FAR_READS`` reads at least ``VOL_FAR_EDGE`` from
+       its ends, mapped against that store and against the 8 Mb
+       chromosome alone: records equal in every field but the subject id.
+       The index's largest position and the largest live seed offset must
+       lie past 2^31.
+    Returns the launches of both parts, summed."""
+    import numpy as np
+    import torch
+
+    from lesv_tpu_torch import _ext, convert
+    from lesv_tpu_torch.config import LesvConfig
+    from lesv_tpu_torch.index.kmer_index import KmerIndex
+    from lesv_tpu_torch.io.seqstore import SeqStore, pack_2bit
+    from lesv_tpu_torch.ops.seeding_torch import (
+        release_device_index,
+        seed_matches_batch,
+    )
+    from lesv_tpu_torch.pipeline.mapper import map_all, map_all_volumes
+    from lesv_tpu_torch.sim import (
+        mutate_read,
+        plant_svs,
+        random_genome,
+        simulate_reads,
+    )
+
+    rng = np.random.default_rng(10)
+    t0 = time.time()
+    chroms, reads = [], []
+    for c in range(VOL_CHROMS):
+        genome = random_genome(rng, VOL_CHROM_BP)
+        n = 20 // VOL_CHROMS + (c < 20 % VOL_CHROMS)
+        donor, _ = plant_svs(rng, genome, n_del=n, n_ins=n)
+        chroms.append((f"chr{c + 1}", genome))
+        reads += simulate_reads(rng, donor, coverage=0.15, mean_len=12_000,
+                                err=0.1)[: VOL_READS // VOL_CHROMS]
+    # the last read has a 1.6 kb stretch at 35% error, which holds no seed:
+    # one inter-anchor segment of the Q=2048 bucket, outside the int16
+    # gate, so that the int32 fill launches too
+    a = int(rng.integers(0, VOL_CHROM_BP - 12_000))
+    g = chroms[-1][1][a : a + 12_000]
+    reads[-1] = ("noisy_mid", np.concatenate([
+        mutate_read(rng, g[:5_000], err=0.1),
+        mutate_read(rng, g[5_000:6_600], err=0.35),
+        mutate_read(rng, g[6_600:], err=0.1)]))
+    store = SeqStore.from_records(chroms)
+    cfg = LesvConfig()
+    cfg.map.batch_reads = VOL_BATCH_READS
+    cfg.map.max_subject_vol_res = VOL_RES
+    bases = sum(len(r) for _, r in reads)
+    setup_s = time.time() - t0
+    launches = {k: 0 for k in _ext.LAUNCHES}
+
+    def add_launches():
+        for k, n in _ext.LAUNCHES.items():
+            launches[k] += n
+
+    # one index of the whole reference
+    t0 = time.time()
+    index = KmerIndex.build(store, cfg.index)
+    one_index_s = time.time() - t0
+    _ext.reset_launches()
+    t0 = time.time()
+    want, _ = map_all(reads, store, index, cfg, device="cuda")
+    one_map_s = time.time() - t0
+    add_launches()
+    release_device_index(index)
+    del index
+
+    ck = os.path.join(REPO, "build", "smoke_volumes")
+    shutil.rmtree(ck, ignore_errors=True)
+    stats: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    _ext.reset_launches()
+    t0 = time.time()
+    got, _ = map_all_volumes(reads, store, cfg, ckpt_dir=ck, device="cuda",
+                             volume_stats=stats)
+    vol_s = time.time() - t0
+    vol_launches = dict(_ext.LAUNCHES)
+    add_launches()
+    after = [s["device_allocated_after"] for s in stats]
+    same = sorted(map(_m4_key, got)) == sorted(map(_m4_key, want))
+    mapped = len({m.qid for m in got})
+    emit(dict(phase="volumes", part="V1", chroms=VOL_CHROMS,
+              chrom_bp=VOL_CHROM_BP, vol_res=VOL_RES, volumes=len(stats),
+              reads=len(reads), read_bases=bases,
+              batch_reads=VOL_BATCH_READS, setup_s=setup_s,
+              one_index_s=one_index_s, one_index_map_s=one_map_s,
+              volumes_s=vol_s, per_volume=stats,
+              device_allocated_before=allocated_before,
+              peak_device_bytes=torch.cuda.max_memory_allocated(),
+              m4=len(got), mapped_reads=mapped, equal_one_index=same,
+              launches=vol_launches))
+    _require_launched(vol_launches, "by the subject-volume loop")
+    if len(stats) != 4 or not same or mapped < 0.9 * len(reads):
+        raise AssertionError(f"volumes V1: {len(stats)} volumes, equal "
+                             f"{same}, {mapped}/{len(reads)} reads mapped")
+    if any(b > a for a, b in zip(after, after[1:])):
+        raise AssertionError(f"volumes V1: device bytes allocated after "
+                             f"each volume grew: {after}")
+
+    part = "map_v001_00002.npz"
+    os.remove(os.path.join(ck, part))
+    stamps = {p: os.stat(os.path.join(ck, p)).st_mtime_ns
+              for p in os.listdir(ck)}
+    _ext.reset_launches()
+    t0 = time.time()
+    again, _ = map_all_volumes(reads, store, cfg, ckpt_dir=ck, device="cuda")
+    resume_s = time.time() - t0
+    add_launches()
+    same_again = sorted(map(_m4_key, again)) == sorted(map(_m4_key, want))
+    rewritten = os.path.exists(os.path.join(ck, part))
+    untouched = stamps == {p: os.stat(os.path.join(ck, p)).st_mtime_ns
+                           for p in os.listdir(ck) if p != part}
+    emit(dict(phase="volumes", part="V1_resume", removed=part,
+              resume_s=resume_s, rewritten=rewritten,
+              others_untouched=untouched, equal=same_again,
+              launches=dict(_ext.LAUNCHES)))
+    shutil.rmtree(ck, ignore_errors=True)
+    if not (same_again and rewritten and untouched):
+        raise AssertionError(f"volumes V1 resume: equal {same_again}, part "
+                             f"rewritten {rewritten}, others untouched "
+                             f"{untouched}")
+    del want, got, again, store, chroms, reads
+
+    # V2: subject offsets past 2^31
+    t0 = time.time()
+    genome = random_genome(rng, VOL_CHROM_BP)
+    far = []
+    for i in range(VOL_FAR_READS):
+        n = int(rng.integers(8_000, 16_000))
+        a = int(rng.integers(VOL_FAR_EDGE, VOL_CHROM_BP - VOL_FAR_EDGE - n))
+        far.append((f"far{i}", mutate_read(rng, genome[a : a + n], err=0.1)))
+    big = convert.seqstore_from_arrays(
+        ["chrN", "chr1"], [0, VOL_N_BP, VOL_N_BP + VOL_CHROM_BP],
+        np.concatenate([np.zeros(VOL_N_BP // 4, np.uint8),
+                        pack_2bit(genome)]),
+        [[0, 0, VOL_N_BP]])
+    alone = SeqStore.from_records([("chr1", genome)])
+    cfg = LesvConfig()
+    setup_s = time.time() - t0
+    built: list = []
+    build = KmerIndex.build.__func__
+
+    def keep_build(cls, *a, **kw):
+        built.append(build(cls, *a, **kw))
+        return built[-1]
+
+    stats_big: list = []
+    _ext.reset_launches()
+    with patched(KmerIndex, "build", classmethod(keep_build)):
+        t0 = time.time()
+        got, _ = map_all_volumes(far, big, cfg, device="cuda",
+                                 volume_stats=stats_big)
+        big_s = time.time() - t0
+    big_launches = dict(_ext.LAUNCHES)
+    add_launches()
+    _ext.reset_launches()
+    t0 = time.time()
+    want, _ = map_all_volumes(far, alone, cfg, device="cuda")
+    alone_s = time.time() - t0
+    add_launches()
+    (index,) = built
+    pos_max = int(index.positions.max())
+    soff_max = 0
+    for i in range(0, len(far), 64):
+        _, s, v, _ = seed_matches_batch([r for _, r in far[i : i + 64]],
+                                        index, cfg.seeding,
+                                        M=cfg.map.seed_match_budget,
+                                        device="cuda")
+        soff_max = max(soff_max, int(s[v].max()))
+    release_device_index(index)
+    same = (sorted(map(_sans_sid, got)) == sorted(map(_sans_sid, want))
+            and {m.sid for m in got} == {1} and {m.sid for m in want} == {0})
+    mapped = len({m.qid for m in got})
+    emit(dict(phase="volumes", part="V2", n_bp=VOL_N_BP,
+              chrom_bp=VOL_CHROM_BP, reads=len(far), setup_s=setup_s,
+              per_volume=stats_big, map_big_s=big_s, map_alone_s=alone_s,
+              index_positions=len(index.positions),
+              index_position_max=pos_max, live_seed_soff_max=soff_max,
+              m4=len(got), mapped_reads=mapped, equal_but_sid=same,
+              launches=big_launches))
+    if not same or mapped < 0.9 * len(far):
+        raise AssertionError(f"volumes V2: records equal but sid {same}, "
+                             f"{mapped}/{len(far)} reads mapped")
+    if not (pos_max > 2**31 and soff_max > 2**31):
+        raise AssertionError(f"volumes V2: largest position {pos_max}, "
+                             f"largest live seed offset {soff_max}: not "
+                             "past 2^31")
+    return launches
+
+
 def _dist_rank(rank: int, world_size: int, job: str) -> None:
     """One rank of phase dist (a spawned process): joins the gloo group,
     runs ``distributed_call`` over ``TorchExchange`` on the cards present
@@ -1916,6 +2158,7 @@ def main() -> int:
     paths_launches = phase_paths(map_world)
     del map_world
     with host_routing(False):
+        volumes_launches = phase_volumes()
         dist_launches = phase_dist(rng)
     run_launches, after_map = phase_run(rng)
     bad = sorted(m for m in sys.modules
@@ -1945,7 +2188,8 @@ def main() -> int:
              launches_overlap_phase=overlap_launches[k],
              launches_dist_phase=dist_launches[k],
              launches_route_phase=route_launches[k],
-             launches_paths_phase=paths_launches[k], library_ms=None,
+             launches_paths_phase=paths_launches[k],
+             launches_volumes_phase=volumes_launches[k], library_ms=None,
              **stats[k])
         for k in ("fill", "fill_i16", "chain", "traceback")]})
     emit({"ok": True, "device": {"platform": "gpu",

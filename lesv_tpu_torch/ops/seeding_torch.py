@@ -64,6 +64,7 @@ class DeviceIndex:
 # (host index, device copy) of the one live index.  The host index is
 # held, not its id(): a freed index's id can be reused by the next
 # subject volume's index, which may even have the same hash count.
+# release_device_index lets go of both once a volume is mapped.
 _DEVICE_INDEX_CACHE: list = []
 _DEVICE_INDEX_LOCK = threading.Lock()
 
@@ -84,6 +85,16 @@ def device_index_of(index: KmerIndex, device) -> DeviceIndex:
             torch.cuda.current_stream(dev).synchronize()
         _DEVICE_INDEX_CACHE.extend([index, di])
         return di
+
+
+def release_device_index(index: KmerIndex) -> None:
+    """Drop the cached device copy of ``index`` and the cache's hold on
+    the host index, so that both are freed once the caller lets go of
+    ``index`` (the subject-volume loop, before the next volume's index is
+    built)."""
+    with _DEVICE_INDEX_LOCK:
+        if _DEVICE_INDEX_CACHE and _DEVICE_INDEX_CACHE[0] is index:
+            _DEVICE_INDEX_CACHE.clear()
 
 
 def _hash_kmers(codes: torch.Tensor, k: int):

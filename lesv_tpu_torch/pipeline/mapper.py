@@ -12,11 +12,13 @@ every entry point takes ``device``.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from lesv_tpu_torch import _ext
 from lesv_tpu_torch.config import LesvConfig
 from lesv_tpu_torch.index.kmer_index import KmerIndex
 from lesv_tpu_torch.io.fasta import revcomp
@@ -30,6 +32,7 @@ from lesv_tpu_torch.ops.pairseed_torch import _pad_pow2_dim
 from lesv_tpu_torch.ops.seeding import collect_seed_matches
 from lesv_tpu_torch.ops.seeding_torch import (
     device_index_of,
+    release_device_index,
     seed_matches_batch,
 )
 from lesv_tpu_torch.parallel.streams import StreamPool
@@ -478,28 +481,29 @@ def map_all_volumes(
     cfg: LesvConfig | None = None,
     ckpt_dir: str | None = None,
     device="cuda",
+    volume_stats: list | None = None,
 ) -> tuple[list[M4], SeqStore]:
     """Out-of-core mapping: subject volumes of <= max_subject_vol_res
     residues, each indexed and mapped in turn (checkpointed per (volume,
-    batch)); M4s are merged per query, score-sorted within a query."""
+    batch)); M4s are merged per query, score-sorted within a query.  Each
+    volume's index, host and device copy, is freed before the next one is
+    built.  ``volume_stats``, where given, gets one dict a volume
+    (:func:`_map_volume`)."""
     cfg = cfg or LesvConfig()
     vols = subject_volumes(store, cfg.map.max_subject_vol_res)
     qstore = SeqStore.from_records(reads)
     if len(vols) <= 1:
-        index = KmerIndex.build(store, cfg.index)
-        return map_all(reads, store, index, cfg, ckpt_dir=ckpt_dir,
-                       qstore=qstore, device=device)
+        m4s = _map_volume(reads, store, qstore, cfg, ckpt_dir, None,
+                          "map_part", device, volume_stats)
+        return m4s, qstore
     out: list[M4] = []
     for vi, (lo, hi) in enumerate(vols):
         vres = int(store.starts[hi] - store.starts[lo])
         log(f"[map] subject volume {vi + 1}/{len(vols)}: "
             f"subjects {lo}..{hi - 1} ({vres/1e6:.1f} Mres)")
-        index = KmerIndex.build(store, cfg.index, sid_range=(lo, hi))
-        m4s, _ = map_all(reads, store, index, cfg, ckpt_dir=ckpt_dir,
-                         qstore=qstore, part_prefix=f"map_v{vi:03d}",
-                         sid_base=lo, device=device)
-        out.extend(m4s)
-        del index
+        out.extend(_map_volume(reads, store, qstore, cfg, ckpt_dir,
+                               (lo, hi), f"map_v{vi:03d}", device,
+                               volume_stats))
     by_qid: dict[int, list[M4]] = {}
     for m in out:
         by_qid.setdefault(m.qid, []).append(m)
@@ -509,3 +513,41 @@ def map_all_volumes(
         lst.sort(key=lambda m: -m.score)
         merged.extend(lst)
     return merged, qstore
+
+
+def _map_volume(reads, store, qstore, cfg, ckpt_dir, sid_range,
+                part_prefix, device, volume_stats) -> list[M4]:
+    """Index subjects ``sid_range`` (all of them where None), map every
+    read against them (:func:`map_all`), then release the index's device
+    copy so that the host index dies with this call.  Appends to
+    ``volume_stats`` (where given) the volume's subjects, index build,
+    upload and map seconds, the device copy's bytes, the kernel launches
+    of the volume, and on a card the bytes still allocated once the copy
+    is released."""
+    dev = torch.device(device)
+    launched = dict(_ext.LAUNCHES)
+    t0 = time.time()
+    index = KmerIndex.build(store, cfg.index, sid_range=sid_range)
+    t1 = time.time()
+    nbytes = 0
+    if cfg.map.engine == "device":
+        nbytes = device_index_of(index, dev).nbytes
+    t2 = time.time()
+    m4s, _ = map_all(reads, store, index, cfg, ckpt_dir=ckpt_dir,
+                     qstore=qstore, part_prefix=part_prefix,
+                     sid_base=sid_range[0] if sid_range else 0,
+                     device=device)
+    t3 = time.time()
+    release_device_index(index)
+    if volume_stats is not None:
+        lo, hi = sid_range or (0, store.num_seqs)
+        rec = dict(subjects=[lo, hi],
+                   residues=int(store.starts[hi] - store.starts[lo]),
+                   index_s=t1 - t0, index_device_bytes=nbytes,
+                   upload_s=t2 - t1, map_s=t3 - t2, m4=len(m4s),
+                   launches={k: n - launched[k]
+                             for k, n in _ext.LAUNCHES.items()})
+        if dev.type == "cuda":
+            rec["device_allocated_after"] = torch.cuda.memory_allocated(dev)
+        volume_stats.append(rec)
+    return m4s

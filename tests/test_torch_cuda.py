@@ -19,9 +19,12 @@ from lesv_tpu_torch.io.seqstore import SeqStore
 from lesv_tpu_torch.sim import mutate_read, random_genome
 from lesv_tpu_torch.ops import align_torch, chain_torch
 from torch_cases import (
+    GENOME_SCALE_SHIFT,
     chain_edge_lanes,
+    shifted_index_arrays,
     traceback_edge_case,
     unsorted_invalid_tail,
+    volume_world,
 )
 
 # one intra-op thread: the suite runs several workers at once, and the
@@ -814,3 +817,75 @@ def test_fetch_chain_sliced_on_the_card_equals_cpu(dev, q16, s16):
                                                    M, 1024, q16, s16))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_map_all_volumes_on_the_card_equals_cpu(dev, tmp_path):
+    """The subject-volume loop on the card (5 chromosomes of 30 kb in 3
+    volumes, 3 map batches a volume, two in flight) equals the CPU's, and
+    so does its resume after one part file is removed.  Each volume's
+    device index is freed once it is mapped: the bytes allocated after
+    every volume are the same, and no more than before the call."""
+    import os
+
+    from lesv_tpu_torch.pipeline import mapper
+
+    chroms, reads = volume_world(np.random.default_rng(11))
+    store = SeqStore.from_records(chroms)
+    cfg = LesvConfig()
+    cfg.map.max_subject_vol_res = 65_000
+    cfg.map.batch_reads = 3
+    assert mapper._map_overlap_depth(dev) == 2
+    want, _ = mapper.map_all_volumes(reads, store, cfg, device="cpu")
+    ck = str(tmp_path / "parts")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    stats: list = []
+    got, _ = mapper.map_all_volumes(reads, store, cfg, ckpt_dir=ck,
+                                    device=dev, volume_stats=stats)
+    assert [_m4_key(m) for m in got] == [_m4_key(m) for m in want]
+    assert len(stats) == 3 and all(s["index_device_bytes"] > 0
+                                   for s in stats)
+    after = [s["device_allocated_after"] for s in stats]
+    assert after == [after[0]] * 3 and after[0] <= before, (before, after)
+    parts = sorted(os.listdir(ck))
+    assert sum(p.startswith("map_v001") for p in parts) == 3
+    os.remove(os.path.join(ck, "map_v001_00001.npz"))
+    again, _ = mapper.map_all_volumes(reads, store, cfg, ckpt_dir=ck,
+                                      device=dev)
+    assert [_m4_key(m) for m in again] == [_m4_key(m) for m in want]
+    assert sorted(os.listdir(ck)) == parts
+
+
+def test_shifted_index_on_the_card_equals_cpu(dev):
+    """Seeds and sliced chains against an index whose subject offsets are
+    moved up by 2,200,000,000: the card's equal the CPU's, and map_batch
+    on the card gives the unshifted index's records."""
+    from lesv_tpu_torch import convert
+    from lesv_tpu_torch.ops.seeding_torch import seed_matches_batch
+    from lesv_tpu_torch.pipeline import mapper
+
+    chroms, reads = volume_world(np.random.default_rng(11))
+    store = SeqStore.from_records(chroms)
+    cfg = LesvConfig()
+    index = KmerIndex.build(store, cfg.index)
+    shifted = convert.kmer_index_from_arrays(
+        *shifted_index_arrays(index, GENOME_SCALE_SHIFT))
+    batch = [r for _, r in reads]
+    M, k = 2048, index.k
+    outs = []
+    for d in (dev, "cpu"):
+        q, s, v, t = seed_matches_batch(batch, shifted, cfg.seeding, M=M,
+                                        device=d)
+        lanes = chain_torch.chain_lanes_sliced(q, s, v, t.cpu().numpy(), M,
+                                               k, cfg.chain)
+        outs.append(([x.cpu() for x in (q, s, v, t)],
+                     [[(c.score, c.qbeg, c.qend, c.sbeg, c.send,
+                        c.anchors.tobytes()) for c in cs] for cs in lanes]))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a, b)
+    assert outs[0][1] == outs[1][1]
+    assert int(outs[0][0][1][outs[0][0][2]].max()) > 2**31
+    qb = list(enumerate(batch))
+    got = mapper.map_batch(qb, store, shifted, cfg, device=dev)
+    want = mapper.map_batch(qb, store, index, cfg, device="cpu")
+    assert got and [_m4_key(m) for m in got] == [_m4_key(m) for m in want]

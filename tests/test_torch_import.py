@@ -179,13 +179,17 @@ def test_no_device_parameter_defaults_to_the_cpu():
 
 
 def test_no_source_file_imports_lesv_tpu():
+    """No source of the port, ``chip_smoke.py`` or ``tools/torch_*.py``
+    imports lesv_tpu or jax."""
+    tools = glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
     files = glob.glob(os.path.join(REPO, "lesv_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
     assert any(os.sep + "parallel" + os.sep in f for f in files)
-    pat = re.compile(r"\b(?:import|from)\s+lesv_tpu\b(?!_)")
+    assert any(f.endswith("torch_genome_scale.py") for f in tools)
+    pat = re.compile(r"\b(?:import|from)\s+(?:lesv_tpu|jax|jaxlib)\b(?!_)")
     bad = []
-    for path in files:
+    for path in files + tools:
         with open(path) as fh:
             for n, line in enumerate(fh, 1):
                 if pat.search(line):

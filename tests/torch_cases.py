@@ -101,3 +101,33 @@ def align_pairs_world(rng):
         s = rng.integers(0, 4, 3_000).astype(np.uint8)
         pairs.append((mutate_read(rng, s[:1_100], err=0.1)[:1_100], s))
     return pairs
+
+
+GENOME_SCALE_SHIFT = 2_200_000_000   # subject offsets past 2^31, below 2^32
+
+
+def volume_world(rng, n_chroms: int = 5, chrom_len: int = 30_000,
+                 n_reads: int = 8):
+    """(chromosomes, reads): ``n_chroms`` random chromosomes and reads of 4
+    to 9 kb at 5% error, each inside one chromosome (a read across two
+    would chain differently in one index and in two volumes)."""
+    from lesv_tpu_torch.sim import mutate_read, random_genome
+
+    chroms = [(f"chr{i}", random_genome(rng, chrom_len))
+              for i in range(n_chroms)]
+    reads = []
+    for i in range(n_reads):
+        ci = int(rng.integers(0, n_chroms))
+        start = int(rng.integers(0, chrom_len - 10_000))
+        frag = chroms[ci][1][start : start + int(rng.integers(4_000, 9_000))]
+        reads.append((f"r{i}", mutate_read(rng, frag, err=0.05)))
+    return chroms, reads
+
+
+def shifted_index_arrays(index, shift: int):
+    """(k, window, uniq_hash, start, positions, subject_starts) of a k-mer
+    index (either package's) with every subject offset moved up by
+    ``shift``; the positions stay uint32."""
+    return (index.k, index.window, index.uniq_hash, index.start,
+            (index.positions.astype(np.int64) + shift).astype(np.uint32),
+            index.subject_starts + shift)
