@@ -48,7 +48,7 @@ Phases, each printing one JSON line:
    outputs and against a mesh of one card; then the map configuration of
    phase ``map`` again under ``use_mesh``: the M4 records must equal phase
    ``map``'s and every kernel must launch under the mesh;
-7. ``overlap``: 2,048 reads (four production batches; ``OVERLAP_READS``)
+7. ``overlap``: 1,536 reads (three production batches; ``OVERLAP_READS``)
    mapped against phase ``map``'s reference and index in turns serial (S:
    one dispatch worker, one batch at a time, as the tests patch it) and
    overlapped (O: the defaults on a card, 8 dispatch workers and 2
@@ -93,17 +93,19 @@ Phases, each printing one JSON line:
    the index's largest position and the largest live seed offset lie past
    2^31.  Per volume: index, upload and map seconds, the device index's
    bytes;
-11. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on a 4 Mb
-   reference with 5 DEL + 5 INS planted and reads at coverage 10, once
+11. ``dist``: ``lesv_tpu_torch.parallel.dist.distributed_call`` on the
+   first half of a 4 Mb reference with 5 DEL + 5 INS planted and reads at
+   coverage 10 (``first_half``: cut in a wide gap between SVs), once
    with ``LocalExchange`` in this process and once as two spawned
    processes joined by ``TorchExchange`` over gloo (a ``file://``
    rendezvous under ``build/smoke_dist``), both on the cards present: the call
    lists must be equal field for field, on every rank.  A rank that fails
    or outlasts ``DIST_JOIN_S`` fails the phase;
 12. ``run``: reads to a VCF through
-   ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on an
-   8 Mb simulated reference with 10 DEL + 10 INS planted and reads at
-   coverage 10 (mean 12 kb, 10% error): per-stage seconds and record
+   ``lesv_tpu_torch.pipeline.driver.run_pipeline(device="cuda")`` on a
+   6 Mb simulated reference with 10 DEL + 10 INS planted and reads at
+   coverage 8 (mean 12 kb, 10% error; a generator of its own,
+   ``RUN_SEED``): per-stage seconds and record
    counts, launches per kernel for the map stage and for the stages after
    it (every kernel must launch in both), the fill's launches by shape
    (``_ext.FILL_SHAPES``: the eight largest keys, the eight largest buckets
@@ -116,13 +118,33 @@ Phases, each printing one JSON line:
    the overlapped run's map checkpoint, and ``calls.vcf``,
    ``remapped.sam``, every stage ``.npz``, the launches and the fill
    shapes after map must be equal.  Host-clock spans sum over the worker
-   threads, so a span's total can exceed the wall time.
+   threads, so a span's total can exceed the wall time;
+13. ``accuracy`` (``phase_accuracy``): the F1 harness
+   ``tools/torch_f1_eval.py`` (``run_case``: the diploid simulation with
+   its TRF bed as ``trf_intervals``, reads to calls, scored by truvari's
+   matching rules) on the card.  (a) The pinned case (``PINNED_ARGS``,
+   seed ``PINNED_SEED``: 60 kb, a het DEL and a hom INS inside a tandem
+   array) with routing off: fill_i16, chain and traceback must launch, and
+   its ``eval``, its calls (kind, pos, length, support, genotype) with
+   their digest, and the bytes of ``calls.vcf`` must equal the constants
+   ``PINNED_*``, which tests/test_torch_tools_pinned.py holds to
+   lesv_tpu's own ``tools/f1_eval.py`` on the CPU.  (b) ACCURACY_r05.json's configuration
+   (1 Mb, coverage 20, 30 SVs, het 0.4, TRF 0.15, cluster 0.1, error 0.08,
+   mean read 12 kb), seed 0, at the default routing: its ``eval`` and call
+   count must equal the record's "ours" (``ACCURACY_EVAL``).  Each prints
+   wall seconds, stage seconds, bases/s, peak RSS and device memory,
+   launches per kernel (the int32 fill, ``fill_block`` above W=2,048),
+   fills to the card and to the host, and the fill launch histogram.  (c)
+   ``recall_cached`` over (b)'s stage files at the default ``LesvConfig()``
+   must give (b)'s ``eval``.
 
-Phases ``map``, ``mesh``, ``overlap``, ``volumes`` and ``dist`` run with
-the routing off (``host_routing(False)``), so that they compare with the runs before
-it; phase ``run`` runs the default, routing on.
+Phases ``map``, ``mesh``, ``overlap``, ``volumes``, ``dist`` and
+``accuracy`` (a) run with the routing off (``host_routing(False)``), so
+that they compare with the runs before it (and (a)'s fills launch on the
+card); phases ``run`` and ``accuracy`` (b) run the default, routing on.
 
-Then the card's ``nvidia-smi`` line, the kernel table (the traceback at
+Then each phase's wall seconds (``phase="seconds"``), the card's
+``nvidia-smi`` line, the kernel table (the traceback at
 diag Q=4096 W=512 with diag Q=256 W=512 under ``other_shapes``, each fill
 with its histogram buckets under ``other_shapes``) and
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -156,13 +178,23 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # phase run: cut from 16 Mb / 20 + 20 SVs when the mesh and dist phases
-# were added, so that the whole script stays near half its time limit
-RUN_GENOME_BP = 8_000_000
+# were added, and from 8 Mb at coverage 10 when phase accuracy was, so
+# that the whole script stays near half its time limit.  Its world comes
+# from a generator of its own: at the default routing its map stage
+# launches every kernel only where some map batch holds more small fills
+# than the host's budget (align_batch._host_route), which this world's
+# do and some others of this size do not; at coverage 6 the calls fall
+# below the phase's recall of 0.9
+RUN_SEED = 11
+RUN_GENOME_BP = 6_000_000
+RUN_COVERAGE = 8.0
 RUN_N_SV = 10               # of each kind, DEL and INS
+# phase dist draws a 4 Mb world and runs on its first half, cut when phase
+# accuracy was added
 DIST_GENOME_BP = 4_000_000
 DIST_N_SV = 5
 DIST_JOIN_S = 600           # a rank still alive after this is killed
-OVERLAP_READS = 2_048       # four production batches of 512
+OVERLAP_READS = 1_536       # three production batches of 512, two in flight
 PATHS_MAP_READ = 8          # reads phase paths maps one by one
 # phase volumes: V1 8 chromosomes of 8 Mb in volumes of 16 Mb (4 volumes),
 # 512 reads in map batches of 128 (two in flight); V2 an all-N chromosome
@@ -176,6 +208,32 @@ VOL_BATCH_READS = 128
 VOL_N_BP = 2_200_000_000
 VOL_FAR_READS = 64
 VOL_FAR_EDGE = 20_000       # V2's reads start and end this far from the ends
+# phase accuracy (a): the pinned diploid case of tools/torch_f1_eval.py
+# (a het DEL and a hom INS inside a tandem array of the TRF bed), and what
+# lesv_tpu's tools/f1_eval.py gives on it on the CPU
+# (tests/test_torch_tools_pinned.py holds both tools to these constants)
+PINNED_SEED = 6
+PINNED_ARGS = dict(genome=60_000, coverage=10.0, err=0.08, mean_len=5_000,
+                   n_sv=3, min_len=40, max_len=1_500, het_frac=0.5,
+                   trf=True, trf_frac=0.5, cluster_frac=0.0)
+PINNED_EVAL = dict(tp=2, fp=0, fn=0, precision=1.0, recall=1.0, f1=1.0,
+                   recall_non_trf=1.0, f1_non_trf=1.0, gt_concordance=1.0)
+PINNED_CALLS = [["DEL", 21253, 466, 4, "0/1"], ["INS", 32211, 110, 8, "1/1"]]
+PINNED_CALLS_DIGEST = ("4d9e83dd83529db1dcd2b5a91df881a4"
+                       "315f048278b8907728b3fe6cccd5409a")
+PINNED_VCF_BYTES = 1_281
+PINNED_VCF_SHA256 = ("a7a0a33ef4f23fc7445307190b5ab1aa"
+                     "d0e121aed1e344dc949ae3cb14b1946d")
+# phase accuracy (b): ACCURACY_r05.json's configuration, seed 0, and its
+# "ours" record (lesv_tpu's tools/f1_eval.py)
+ACCURACY_SEED = 0
+ACCURACY_ARGS = dict(genome=1_000_000, coverage=20.0, err=0.08,
+                     mean_len=12_000, n_sv=30, min_len=40, max_len=30_000,
+                     het_frac=0.4, trf=True, trf_frac=0.15, cluster_frac=0.1)
+ACCURACY_EVAL = dict(tp=27, fp=0, fn=3, precision=1.0, recall=0.9,
+                     f1=0.9474, recall_non_trf=0.8929, f1_non_trf=0.9434,
+                     gt_concordance=0.8148)
+ACCURACY_CALLS = 27
 SPANS_NOTE = ("span totals sum over the worker threads, so a total can "
               "exceed the wall time")
 
@@ -1079,7 +1137,7 @@ def _m4_key(m):
 
 
 def phase_overlap(world):
-    """Map ``OVERLAP_READS`` reads (four production batches) against phase
+    """Map ``OVERLAP_READS`` reads (three production batches) against phase
     map's reference and index, in turns serial (S: one dispatch worker,
     one batch at a time) and overlapped (O: the defaults, 8 dispatch
     workers and 2 batches in flight, a CUDA stream each): S, O, S, O, the
@@ -1094,10 +1152,10 @@ def phase_overlap(world):
     from lesv_tpu_torch.pipeline.mapper import map_all
     from lesv_tpu_torch.sim import simulate_reads
 
-    # coverage 0.45 of 64 Mb: about 2,400 reads of mean 12 kb, so that
-    # the first 2,048 are always there
+    # coverage 0.35 of 64 Mb: about 1,870 reads of mean 12 kb, so that
+    # the first 1,536 are always there
     rng = np.random.default_rng(7)
-    reads = simulate_reads(rng, world["donor"], coverage=0.45,
+    reads = simulate_reads(rng, world["donor"], coverage=0.35,
                            mean_len=12_000, err=0.1)[:OVERLAP_READS]
     if len(reads) != OVERLAP_READS:
         raise AssertionError(f"only {len(reads)} reads simulated")
@@ -1816,6 +1874,30 @@ def _dist_rank(rank: int, world_size: int, job: str) -> None:
     os.replace(f"{job}.rank{rank}.tmp", f"{job}.rank{rank}")
 
 
+def first_half(genome, donor, truth, reads):
+    """About the first half of a world of ``plant_svs`` and
+    ``simulate_reads``: the reference up to a cut in the middle of a gap of
+    at least 100 kb between planted SVs (the one nearest the reference's
+    middle, so that reads across the cut, which are left out, lie far from
+    every SV), the planted SVs before the cut, and the reads drawn wholly
+    from the donor before it (a read's name ends with its donor
+    interval)."""
+    n = len(genome)
+    svs = sorted(truth.svs, key=lambda sv: sv.ref_pos)
+    ends = [sv.ref_pos + (sv.length if sv.kind == "DEL" else 0)
+            for sv in svs]
+    gaps = [(ends[i], svs[i + 1].ref_pos) for i in range(len(svs) - 1)
+            if svs[i + 1].ref_pos - ends[i] >= 100_000]
+    a, b = min(gaps, key=lambda g: abs((g[0] + g[1]) // 2 - n // 2))
+    cut = (a + b) // 2
+    before = [sv for sv in svs if sv.ref_pos < cut]
+    dcut = cut + sum(sv.length if sv.kind == "INS" else -sv.length
+                     for sv in before)
+    kept = [(name, r) for name, r in reads
+            if int(name.rsplit("_", 1)[1]) <= dcut]
+    return genome[:cut], type(truth)(svs=before), kept
+
+
 def phase_dist(rng):
     import torch
     import torch.multiprocessing as mp
@@ -1831,6 +1913,7 @@ def phase_dist(rng):
     donor, truth = plant_svs(rng, genome, n_del=DIST_N_SV, n_ins=DIST_N_SV)
     reads = simulate_reads(rng, donor, coverage=coverage, mean_len=12_000,
                            err=0.1)
+    genome, truth, reads = first_half(genome, donor, truth, reads)
     ref = [("chrSim", genome)]
     cfg = LesvConfig()
     setup_s = time.time() - t0
@@ -1956,7 +2039,7 @@ def phase_run(rng):
     from lesv_tpu_torch.utils import profiling
 
     t0 = time.time()
-    coverage = 10.0
+    coverage = RUN_COVERAGE
     genome = random_genome(rng, RUN_GENOME_BP)
     donor, truth = plant_svs(rng, genome, n_del=RUN_N_SV, n_ins=RUN_N_SV)
     reads = simulate_reads(rng, donor, coverage=coverage, mean_len=12_000,
@@ -2097,6 +2180,77 @@ def phase_run(rng):
     return run_launches, after_map
 
 
+def f1_args(sim: dict, out: str, seeds: list):
+    """The arguments of ``tools/torch_f1_eval.py`` for a case: ``sim``'s
+    fields, ``--out``, ``--seeds`` and ``--device cuda``."""
+    import argparse
+
+    return argparse.Namespace(**sim, out=out, seeds=seeds, device="cuda")
+
+
+def phase_accuracy():
+    """The F1 harness (``tools/torch_f1_eval.py``) on the card: (a) the
+    pinned case with routing off, held to ``PINNED_*``; (b) ACCURACY_r05's
+    configuration, seed 0, at the default routing, held to its record; (c)
+    ``recall_cached`` over (b)'s stage files, held to (b)'s ``eval``."""
+    import hashlib
+
+    from lesv_tpu_torch.config import LesvConfig
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_f1_eval as f1
+    from lesv_tpu_torch import _ext
+
+    root = os.path.join(REPO, "build", "smoke_accuracy")
+    shutil.rmtree(root, ignore_errors=True)
+    a_args = f1_args(PINNED_ARGS, os.path.join(root, "pinned"),
+                     [PINNED_SEED])
+    with host_routing(False):
+        pin = f1.run_case(PINNED_SEED, a_args, LesvConfig())
+    pin_shapes = dict(_ext.FILL_SHAPES)
+    vcf = _read(os.path.join(a_args.out, f"seed{PINNED_SEED}"), "calls.vcf")
+    pin_vcf_sha = hashlib.sha256(vcf).hexdigest()
+    emit(dict(phase="accuracy_pinned", seed=PINNED_SEED, **PINNED_ARGS,
+              report=pin, vcf_bytes=len(vcf), vcf_sha256=pin_vcf_sha,
+              fill_shapes_top8=fill_histogram(pin_shapes),
+              fill_buckets_i32_top4=fill_buckets(pin_shapes, 4, "i32")))
+    _require_launched({k: pin["launches"][k]
+                       for k in ("fill_i16", "chain", "traceback")},
+                      "on the pinned case")
+    differ = [name for name, got, want in (
+        ("eval", pin["eval"], PINNED_EVAL),
+        ("calls", pin["call_keys"], PINNED_CALLS),
+        ("calls_digest", pin["calls_digest"], PINNED_CALLS_DIGEST),
+        ("vcf_bytes", len(vcf), PINNED_VCF_BYTES),
+        ("vcf_sha256", pin_vcf_sha, PINNED_VCF_SHA256)) if got != want]
+    if differ:
+        raise AssertionError(f"the pinned case differs from the constants "
+                             f"in {differ}")
+
+    b_args = f1_args(ACCURACY_ARGS, os.path.join(root, "r05"),
+                     [ACCURACY_SEED])
+    acc = f1.run_case(ACCURACY_SEED, b_args, LesvConfig())
+    acc_shapes = dict(_ext.FILL_SHAPES)
+    emit(dict(phase="accuracy_r05", seed=ACCURACY_SEED, **ACCURACY_ARGS,
+              report=acc, fill_shapes_top8=fill_histogram(acc_shapes),
+              fill_buckets_i32_top4=fill_buckets(acc_shapes, 4, "i32")))
+    if acc["eval"] != ACCURACY_EVAL or acc["calls"] != ACCURACY_CALLS:
+        raise AssertionError(f"ACCURACY_r05 seed {ACCURACY_SEED}: eval "
+                             f"{acc['eval']}, {acc['calls']} calls; the "
+                             f"record: {ACCURACY_EVAL}, {ACCURACY_CALLS}")
+
+    t0 = time.time()
+    ev, n = f1.recall_cached(ACCURACY_SEED, b_args, LesvConfig())
+    emit(dict(phase="accuracy_recall_cached", eval=ev, calls=n,
+              recall_s=time.time() - t0))
+    if ev != acc["eval"] or n != acc["calls"]:
+        raise AssertionError("recall_cached over the stage files differs "
+                             "from the run's eval")
+    shutil.rmtree(root, ignore_errors=True)
+    return {k: pin["launches"][k] + acc["launches"][k]
+            for k in pin["launches"]}
+
+
 # the stage checkpoints of run_pipeline's out_dir
 STAGE_FILES = ("map.npz", "sv_reads.npz", "signatures.npz",
                "consensus.npz", "remap.npz")
@@ -2122,6 +2276,7 @@ def _npz_equal(a: str, b: str) -> bool:
 def main() -> int:
     import torch
 
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2146,21 +2301,33 @@ def main() -> int:
               kernels=list(_ext.KERNELS)))
     rng = np.random.default_rng(0)
     stats: dict = {}
-    phase_fill(rng, stats)
-    phase_chain(rng, stats)
+    phase_s = {"build": time.time() - t0}
+
+    def timed(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        phase_s[name] = time.time() - t
+        return out
+
+    timed("fill", phase_fill, rng, stats)
+    timed("chain", phase_chain, rng, stats)
     # phases map, mesh, overlap and dist with routing off, as before it was
     # ported, so that their records, launches and times compare
     with host_routing(False):
-        map_launches, map_world = phase_map(rng)
-        mesh_launches = phase_mesh(rng, map_world)
-        overlap_launches = phase_overlap(map_world)
-    route_launches = phase_route(map_world)
-    paths_launches = phase_paths(map_world)
+        map_launches, map_world = timed("map", phase_map, rng)
+        mesh_launches = timed("mesh", phase_mesh, rng, map_world)
+        overlap_launches = timed("overlap", phase_overlap, map_world)
+    route_launches = timed("route", phase_route, map_world)
+    paths_launches = timed("paths", phase_paths, map_world)
     del map_world
     with host_routing(False):
-        volumes_launches = phase_volumes()
-        dist_launches = phase_dist(rng)
-    run_launches, after_map = phase_run(rng)
+        volumes_launches = timed("volumes", phase_volumes)
+        dist_launches = timed("dist", phase_dist, rng)
+    run_launches, after_map = timed("run", phase_run,
+                                    np.random.default_rng(RUN_SEED))
+    accuracy_launches = timed("accuracy", phase_accuracy)
+    emit(dict(phase="seconds", phase_s=phase_s,
+              total_s=time.time() - t_start))
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "jaxlib", "lesv_tpu")
                  or m.startswith(("jax.", "lesv_tpu.")))
@@ -2189,7 +2356,8 @@ def main() -> int:
              launches_dist_phase=dist_launches[k],
              launches_route_phase=route_launches[k],
              launches_paths_phase=paths_launches[k],
-             launches_volumes_phase=volumes_launches[k], library_ms=None,
+             launches_volumes_phase=volumes_launches[k],
+             launches_accuracy_phase=accuracy_launches[k], library_ms=None,
              **stats[k])
         for k in ("fill", "fill_i16", "chain", "traceback")]})
     emit({"ok": True, "device": {"platform": "gpu",

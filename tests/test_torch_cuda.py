@@ -889,3 +889,37 @@ def test_shifted_index_on_the_card_equals_cpu(dev):
     got = mapper.map_batch(qb, store, shifted, cfg, device=dev)
     want = mapper.map_batch(qb, store, index, cfg, device="cpu")
     assert got and [_m4_key(m) for m in got] == [_m4_key(m) for m in want]
+
+
+def test_pinned_f1_case_on_the_card_equals_lesv_tpu(dev, tmp_path,
+                                                    monkeypatch):
+    """``chip_smoke.py``'s pinned diploid case (a het DEL, a hom INS in a
+    tandem array) through ``tools/torch_f1_eval.py`` on the card with
+    routing off: the calls, their digest, ``eval`` and the bytes of
+    ``calls.vcf`` equal the constants that tests/test_torch_tools_pinned.py
+    holds to lesv_tpu's ``tools/f1_eval.py``; fill_i16, chain and traceback
+    launch."""
+    import argparse
+    import hashlib
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(repo)
+    monkeypatch.syspath_prepend(os.path.join(repo, "tools"))
+    import chip_smoke
+    import torch_f1_eval
+
+    monkeypatch.setenv("LESV_TORCH_HOST_SMALL", "0")
+    args = argparse.Namespace(**chip_smoke.PINNED_ARGS, out=str(tmp_path),
+                              seeds=[chip_smoke.PINNED_SEED], device="cuda")
+    rep = torch_f1_eval.run_case(chip_smoke.PINNED_SEED, args, LesvConfig())
+    with open(tmp_path / f"seed{chip_smoke.PINNED_SEED}" / "calls.vcf",
+              "rb") as fh:
+        vcf = fh.read()
+    assert rep["eval"] == chip_smoke.PINNED_EVAL
+    assert rep["call_keys"] == chip_smoke.PINNED_CALLS
+    assert rep["calls_digest"] == chip_smoke.PINNED_CALLS_DIGEST
+    assert len(vcf) == chip_smoke.PINNED_VCF_BYTES
+    assert hashlib.sha256(vcf).hexdigest() == chip_smoke.PINNED_VCF_SHA256
+    assert all(rep["launches"][k] > 0
+               for k in ("fill_i16", "chain", "traceback")), rep["launches"]

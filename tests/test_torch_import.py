@@ -186,7 +186,9 @@ def test_no_source_file_imports_lesv_tpu():
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
     assert any(os.sep + "parallel" + os.sep in f for f in files)
-    assert any(f.endswith("torch_genome_scale.py") for f in tools)
+    for name in ("torch_genome_scale.py", "torch_f1_eval.py",
+                 "torch_scale_run.py", "torch_profile_e2e.py"):
+        assert any(f.endswith(os.sep + name) for f in tools), name
     pat = re.compile(r"\b(?:import|from)\s+(?:lesv_tpu|jax|jaxlib)\b(?!_)")
     bad = []
     for path in files + tools:
