@@ -45,7 +45,9 @@ that fails raises.
 ``FILL_STATS`` counts the fills and DP cells that went to the host and
 to the device fill, and apart the pairs of ``_host_route``
 (``host_routed``) and the chunks of ``_chunk_prefers_host``
-(``chunks_to_host``).  The host helpers (:func:`align_pairs_host`,
+(``chunks_to_host``), and apart again the whole-span NW of the global
+fallback (``fallback_fills``, ``fallback_cells``, ``fallback_kept``).
+The host helpers (:func:`align_pairs_host`,
 :func:`global_align_pairs_host` and the band-widening numpy retry) are
 the JAX package's, on the port's native library.
 """
@@ -80,9 +82,14 @@ from lesv_tpu_torch.utils import profiling
 
 # host_fills / host_cells count every pair solved on the host (routed
 # pairs, routed and monster chunks, band-escape retries); host_routed the
-# pairs of _host_route, chunks_to_host the chunks of _chunk_prefers_host
+# pairs of _host_route, chunks_to_host the chunks of _chunk_prefers_host.
+# The whole-span NW of global_align_pairs_host is apart: fallback_cells
+# its cells, every band attempt included; fallback_fills and
+# fallback_kept (batch_align._apply_global_fallback) the pairs sent to it
+# and the answers that replaced the anchored alignment
 FILL_STATS = {"device_fills": 0, "device_cells": 0, "host_fills": 0,
-              "host_cells": 0, "host_routed": 0, "chunks_to_host": 0}
+              "host_cells": 0, "host_routed": 0, "chunks_to_host": 0,
+              "fallback_fills": 0, "fallback_cells": 0, "fallback_kept": 0}
 
 
 _FILL_STATS_LOCK = threading.Lock()
@@ -229,11 +236,11 @@ def align_pairs(
             sb[j, : len(s)] = s
             qlen[j] = len(q)
             slen[j] = len(s)
-        with profiling.trace(f"align/dispatch/{mode}/W{W}"):
+        with profiling.trace("align/dispatch"):
             pend = banded_align_dispatch(qb, sb, qlen, slen, W, mode, cfg,
                                          free_end=free_end, device=dev,
                                          force_i16=force_i16)
-        with profiling.trace(f"align/finish/{mode}/W{W}"):
+        with profiling.trace("align/finish"):
             out = banded_align_finish(pend)
         escaped = []
         for j, i in enumerate(chunk):
@@ -340,8 +347,10 @@ def global_align_pairs_host(
         W = min(ls + 1, _next_pow2(2 * abs(ls - lq) + 1024, lo=256,
                                    hi=1 << 17))
         a: Alignment | None = None
+        cells = 0
         while True:
             mode_diag = W < ls + 1
+            cells += lq * W if mode_diag else (lq + 1) * (ls + 1)
             r = native.banded_align_one(
                 q, s, int(W), mode_diag, cfg.match, cfg.mismatch,
                 cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2,
@@ -352,6 +361,7 @@ def global_align_pairs_host(
             if a is not None or W >= ls + 1:
                 break
             W = min(W * 2, ls + 1)
+        _count_fills(fallback_cells=cells)
         if a is not None:
             a = trim_to_exact_match(a, q, s, cfg.end_match_len)
         return a

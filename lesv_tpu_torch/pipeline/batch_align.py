@@ -179,7 +179,9 @@ def _apply_global_fallback(pairs, res, cfg: LesvConfig,
                            end_gap: int = 128) -> None:
     """Replace alignments that leave more than ``end_gap`` unaligned at
     any end with the host whole-span NW when that covers more of the
-    span (``lesv_tpu.pipeline.batch_align._apply_global_fallback``)."""
+    span (``lesv_tpu.pipeline.batch_align._apply_global_fallback``).
+    ``FILL_STATS`` counts the pairs sent to the NW (``fallback_fills``)
+    and the answers kept (``fallback_kept``)."""
     idxs = []
     for i, ((q, s), a) in enumerate(zip(pairs, res)):
         if len(q) == 0 or len(s) == 0:
@@ -192,6 +194,7 @@ def _apply_global_fallback(pairs, res, cfg: LesvConfig,
     with profiling.trace("align/global_fallback"):
         galns = global_align_pairs_host([pairs[i] for i in idxs],
                                         cfg.align)
+    kept = 0
     for i, ga in zip(idxs, galns):
         if ga is None:
             continue
@@ -199,3 +202,5 @@ def _apply_global_fallback(pairs, res, cfg: LesvConfig,
         if old is None or ((ga.qe - ga.qb) + (ga.se - ga.sb)
                            > (old.qe - old.qb) + (old.se - old.sb)):
             res[i] = ga
+            kept += 1
+    align_batch._count_fills(fallback_fills=len(idxs), fallback_kept=kept)

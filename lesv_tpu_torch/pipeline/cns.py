@@ -198,7 +198,8 @@ def _run_round(
     reference order, so accepted overlaps / coverage caps / tag sets are
     identical to the sequential per-template loop."""
     ccfg = cfg.cns
-    cands = _all_overlap_cands(read_lists, cfg, device)
+    with profiling.trace("cns/overlap_cands"):
+        cands = _all_overlap_cands(read_lists, cfg, device)
     states: list[_TemplateState] = []
     for g, reads in enumerate(read_lists):
         for i, tmpl in enumerate(reads):

@@ -11,6 +11,7 @@ markers and resume, on the torch ``device`` given to :func:`run_pipeline`.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -75,18 +76,17 @@ def run_pipeline(
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
+    @contextlib.contextmanager
     def timed(name):
-        class _T:
-            def __enter__(self):
-                self.t0 = time.time()
-                return self
-
-            def __exit__(self, *a):
-                timings[name] = time.time() - self.t0
-                profiling.add("stage/" + name, timings[name])
-                log(f"[{name}] {timings[name]:.2f}s")
-
-        return _T()
+        """A stage: its span ``stage/<name>`` (the parent of every span
+        inside it) and its seconds in ``timings``."""
+        t0 = time.time()
+        try:
+            with profiling.trace("stage/" + name):
+                yield
+        finally:
+            timings[name] = time.time() - t0
+            log(f"[{name}] {timings[name]:.2f}s")
 
     def stage(name, compute, save=None, load=None):
         """Run or resume one checkpointed stage (reference .done markers,

@@ -36,6 +36,7 @@ from lesv_tpu_torch.ops.cigar import effective_ident_perc, match_mask
 from lesv_tpu_torch.ops.pairseed import mem_anchors, pair_chains
 from lesv_tpu_torch.pipeline.batch_align import _apply_global_fallback
 from lesv_tpu_torch.pipeline.mapper import FWD, REV, M4
+from lesv_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -117,22 +118,24 @@ def realign_span(qstore: SeqStore, sstore: SeqStore, qid: int, qdir: int,
                  cfg: LesvConfig, device="cuda"):
     """Anchored global realignment of an oriented query span vs a subject
     span (replaces `align_and_refine_subseq_with_ksw`)."""
-    q = oriented_query(qstore, qid, qdir, qoff, qend)
-    s = sstore.get(sid, soff, send)
-    mk = cfg.memsc.kmer_size
-    chains = pair_chains(q, s, k=mk, q_stride=cfg.memsc.kmer_window,
-                         max_occ=cfg.memsc.max_occ,
-                         min_score=cfg.memsc.mem_score, cfg=cfg.chain)
-    aln = None
-    if chains:
-        runs = mem_anchors(q, s, chains[0].anchors, mk, cfg.memsc.mem_size)
-        aln = anchored_extend(q, s, runs, k=mk, cfg=cfg.align,
-                              device=device)
-    # whole-span NW fallback (the reference always full-DPs this span,
-    # `align_subseqs.c:193-262`); see batch_align._apply_global_fallback
-    res = [aln]
-    _apply_global_fallback([(q, s)], res, cfg)
-    aln = res[0]
+    with profiling.trace("svr/realign"):
+        q = oriented_query(qstore, qid, qdir, qoff, qend)
+        s = sstore.get(sid, soff, send)
+        mk = cfg.memsc.kmer_size
+        chains = pair_chains(q, s, k=mk, q_stride=cfg.memsc.kmer_window,
+                             max_occ=cfg.memsc.max_occ,
+                             min_score=cfg.memsc.mem_score, cfg=cfg.chain)
+        aln = None
+        if chains:
+            runs = mem_anchors(q, s, chains[0].anchors, mk,
+                               cfg.memsc.mem_size)
+            aln = anchored_extend(q, s, runs, k=mk, cfg=cfg.align,
+                                  device=device)
+        # whole-span NW fallback (the reference always full-DPs this span,
+        # `align_subseqs.c:193-262`); see batch_align._apply_global_fallback
+        res = [aln]
+        _apply_global_fallback([(q, s)], res, cfg)
+        aln = res[0]
     if aln is None:
         return None
     return q, s, aln
@@ -326,21 +329,22 @@ def select_sv_reads(
     """Run SV-read selection over all M4 records (grouped by query);
     span realignments run on ``device``."""
     cfg = cfg or LesvConfig()
-    by_qid: dict[int, list[M4]] = {}
-    for m in m4s:
-        by_qid.setdefault(m.qid, []).append(m)
-    out: list[SvRead] = []
-    for qid in sorted(by_qid):
-        ms = by_qid[qid]
-        if ms[0].qsize < cfg.sv_read.min_seq_size:
-            continue
-        ms = remove_contained_m4s(ms, cfg.sv_read.contained_eps)
-        if not ms:
-            continue
-        if _find_complete(ms, qstore, sstore, trf, cfg, out, device):
-            continue
-        ms = remove_repeat_m4s(ms, cfg.sv_read.repeat_eps)
-        if not ms:
-            continue
-        _find_dual(ms, qstore, sstore, trf, cfg, out, device)
+    with profiling.trace("svr/select"):
+        by_qid: dict[int, list[M4]] = {}
+        for m in m4s:
+            by_qid.setdefault(m.qid, []).append(m)
+        out: list[SvRead] = []
+        for qid in sorted(by_qid):
+            ms = by_qid[qid]
+            if ms[0].qsize < cfg.sv_read.min_seq_size:
+                continue
+            ms = remove_contained_m4s(ms, cfg.sv_read.contained_eps)
+            if not ms:
+                continue
+            if _find_complete(ms, qstore, sstore, trf, cfg, out, device):
+                continue
+            ms = remove_repeat_m4s(ms, cfg.sv_read.repeat_eps)
+            if not ms:
+                continue
+            _find_dual(ms, qstore, sstore, trf, cfg, out, device)
     return out

@@ -319,12 +319,13 @@ def test_map_read_equals_jax(world):
     assert [_m4_key(m) for m in got] == [_m4_key(m) for m in want]
 
 
-# -- annotate ------------------------------------------------------------------
+# -- a span names a region -----------------------------------------------------
 
-def test_annotate_names_a_region_in_the_device_trace(tmp_path):
+def test_annotate_names_a_region_in_the_device_trace(tmp_path, monkeypatch):
+    monkeypatch.setattr(profiling, "_enabled", True)
     with profiling.device_trace(str(tmp_path)):
-        with profiling.annotate("paths/annotated_region"):
+        with profiling.trace("paths/annotated_region"):
             torch.arange(64).sum()
     with open(os.path.join(tmp_path, "trace.json")) as fh:
         names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-    assert "paths/annotated_region" in names
+    assert "lesv/paths/annotated_region" in names

@@ -15,6 +15,7 @@ host arithmetic and are compared after ``round(x, 9)``.
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -28,9 +29,11 @@ from lesv_tpu.pipeline import stages_io as jax_sio
 from lesv_tpu.sim import plant_svs, random_genome, simulate_reads
 from lesv_tpu_torch import convert
 from lesv_tpu_torch.io.seqstore import SeqStore
+from lesv_tpu_torch.ops import align_batch
 from lesv_tpu_torch.pipeline import caller, cns, driver, grouping, remap
 from lesv_tpu_torch.pipeline import signatures, sv_reads
 from lesv_tpu_torch.pipeline import stages_io as sio
+from lesv_tpu_torch.utils import profiling
 
 # one intra-op thread: the suite runs several workers at once, and the
 # small CPU tensor ops of the plain versions gain nothing from more
@@ -91,10 +94,16 @@ def world(tmp_path_factory):
     jdir, tdir = str(root / "jax"), str(root / "torch")
     jres = jax_driver.run_pipeline(ref, reads, jcfg, out_dir=jdir,
                                    resume=True)
+    # profile.json and the counters then hold this one run
+    profiling.reset()
+    align_batch.reset_fill_stats()
     tres = driver.run_pipeline(ref, reads, cfg, out_dir=tdir, resume=True,
                                device="cpu")
-    return dict(ref=ref, reads=reads, truth=truth, jcfg=jcfg, cfg=cfg,
+    with open(os.path.join(tdir, "profile.json")) as fh:
+        prof = json.load(fh)
+    return dict(profile=prof, ref=ref, reads=reads, truth=truth, jcfg=jcfg, cfg=cfg,
                 jdir=jdir, tdir=tdir, jres=jres, tres=tres,
+                fill_stats=dict(align_batch.FILL_STATS),
                 sstore=SeqStore.from_records(ref),
                 qstore=SeqStore.from_records(reads))
 
@@ -141,6 +150,43 @@ def test_calls_and_files_identical(world):
             assert got == fh.read(), name
         assert len(got) > 0
     assert os.path.exists(os.path.join(world["tdir"], "profile.json"))
+
+
+# every stage's span holds the spans of its stage on the caller thread;
+# (parent, children) pairs of profile.json
+NESTED = [
+    ("stage/sv_reads", ["svr/select"]),
+    ("svr/select", ["svr/realign"]),
+    ("stage/signatures", ["svsig/extract"]),
+    ("svsig/extract", ["svsig/align", "svsig/repair"]),
+    ("stage/consensus", ["cns/overlap_cands", "cns/mem_anchors",
+                         "cns/align_wave", "cns/admission", "cns/finish"]),
+]
+
+
+def test_profile_json_nests_stage_spans(world):
+    """``profile.json`` of the run: every stage a span, each new span of
+    SV-read selection, signatures and consensus inside its parent (child
+    totals at most the parent's, self time at most the total), and the
+    whole-span NW's counters consistent."""
+    prof = world["profile"]
+    for name in ("build_ref", "split", "map", "sv_reads", "signatures",
+                 "grouping", "consensus", "remap", "call"):
+        assert prof["stage/" + name]["count"] == 1, name
+    for name in ("svr/select", "svsig/extract", "svsig/align",
+                 "svsig/repair", "cns/overlap_cands", "cns/finish"):
+        assert prof[name]["count"] >= 1, name
+    assert prof["cns/overlap_cands"]["count"] == 2      # one a round
+    slack = 2e-4                # report() rounds to 1e-4
+    for parent, kids in NESTED:
+        got = [prof[k]["total_s"] for k in kids if k in prof]
+        assert sum(got) <= prof[parent]["total_s"] + slack, parent
+    for name, v in prof.items():
+        assert set(v) == {"count", "total_s", "mean_s", "self_s"}
+        assert 0 <= v["self_s"] <= v["total_s"] + slack, name
+    st = world["fill_stats"]
+    assert 0 <= st["fallback_kept"] <= st["fallback_fills"]
+    assert (st["fallback_cells"] > 0) == (st["fallback_fills"] > 0)
 
 
 def test_resume_from_port_checkpoints(world, monkeypatch):

@@ -7,6 +7,7 @@ compared field by field with exact equality."""
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import torch
@@ -101,7 +102,12 @@ def test_profiling_spans_and_device_trace(tmp_path, monkeypatch):
     profiling.reset()
     with profiling.trace("unit/a"):
         pass
-    profiling.add("stage/x", 1.5)
+    ticks = iter([0.0, 1.5])
+    with monkeypatch.context() as m:
+        m.setattr(profiling, "time",
+                  types.SimpleNamespace(perf_counter=lambda: next(ticks)))
+        with profiling.trace("stage/x"):
+            pass
     rep = profiling.report()
     assert rep["unit/a"]["count"] == 1 and rep["stage/x"]["total_s"] == 1.5
     p = str(tmp_path / "prof.json")
@@ -116,3 +122,54 @@ def test_profiling_spans_and_device_trace(tmp_path, monkeypatch):
         torch.ones(8).add_(1)
     with open(os.path.join(logdir, "trace.json")) as fh:
         assert json.load(fh)["traceEvents"]
+
+
+def test_realign_span_fallback_equals_jax_and_is_counted(monkeypatch):
+    """A span whose query begins with 600 bases the subject lacks: the
+    anchored alignment leaves them out, so the whole-span NW runs.  Equal
+    to lesv_tpu's; ``FILL_STATS`` counts the NW's pair, its cells (each
+    band attempt, as the native calls saw them) and whether it was kept;
+    the NW's span lies inside ``svr/realign``."""
+    from lesv_tpu_torch import native
+    from lesv_tpu_torch.ops import align_batch
+
+    rng = np.random.default_rng(12)
+    body = rng.integers(0, 4, 6_000).astype(np.uint8)
+    junk = rng.integers(0, 4, 600).astype(np.uint8)
+    q = np.concatenate([junk, mutate_read(rng, body, err=0.05)])
+    reads, subject = [("q0", q)], [("chr1", body)]
+    jcfg = JaxConfig()
+    jq, js, ja = jax_sv_reads.realign_span(
+        JaxSeqStore.from_records(reads), JaxSeqStore.from_records(subject),
+        0, 0, 0, len(q), 0, 0, len(body), jcfg)
+
+    calls = []
+    real = native.banded_align_one
+
+    def seen(qq, ss, W, mode_diag, *a):
+        calls.append(len(qq) * W if mode_diag
+                     else (len(qq) + 1) * (len(ss) + 1))
+        return real(qq, ss, W, mode_diag, *a)
+
+    monkeypatch.setattr(native, "banded_align_one", seen)
+    profiling.reset()
+    align_batch.reset_fill_stats()
+    q2, s2, a = sv_reads.realign_span(
+        SeqStore.from_records(reads), SeqStore.from_records(subject),
+        0, 0, 0, len(q), 0, 0, len(body),
+        convert.config_from_dict(dataclasses.asdict(jcfg)), device="cpu")
+    np.testing.assert_array_equal(q2, jq)
+    np.testing.assert_array_equal(s2, js)
+    assert (a.qb, a.qe, a.sb, a.se, a.score) == \
+        (ja.qb, ja.qe, ja.sb, ja.se, ja.score)
+    np.testing.assert_array_equal(a.ops, ja.ops)
+
+    st = dict(align_batch.FILL_STATS)
+    assert st["fallback_fills"] == 1 and calls
+    assert 0 <= st["fallback_kept"] <= st["fallback_fills"]
+    assert st["fallback_cells"] == sum(calls) > 0
+    rep = profiling.report()
+    assert rep["svr/realign"]["count"] == 1
+    assert rep["align/global_fallback"]["total_s"] <= \
+        rep["svr/realign"]["total_s"]
+    assert rep["svr/realign"]["self_s"] <= rep["svr/realign"]["total_s"]
