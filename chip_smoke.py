@@ -23,7 +23,13 @@ Phases, each printing one JSON line:
    (``FILL_HIST_SHAPES``: the int16 full-mode buckets of 1,024 and 256
    lanes and the two widest int32 diag buckets, on inputs of their own
    generator) against its plain version and, int16, against the int32
-   kernel, and one shape outside the gate, which must raise.  Exact equality (tolerance 0: all values
+   kernel, ``fill_block`` at the whole-span NW's launches of the global
+   fallback (``nw_spans``: 18 to 53 kb reads, diag W 8,192 and 32,768 and
+   full W 16,385, the last two with the row state in the global scratch)
+   against its plain version, one launch each from a reset, and
+   ``align_batch.global_align_pairs_device`` on them against the native
+   host NW and lesv_tpu's answers (``NW_ANSWERS_SHA256``), and one shape
+   outside the gate, which must raise.  Exact equality (tolerance 0: all values
    are integers).  Each kernel is timed three ways: ``ms``, CUDA events
    around back-to-back calls (``cuda_ms``: the wrapper's host cost counts
    where it exceeds the kernel's); ``device_ms``, the same calls queued
@@ -234,6 +240,16 @@ ACCURACY_EVAL = dict(tp=27, fp=0, fn=3, precision=1.0, recall=0.9,
                      f1=0.9474, recall_non_trf=0.8929, f1_non_trf=0.9434,
                      gt_concordance=0.8148)
 ACCURACY_CALLS = 27
+# phase fill's whole-span NW spans (``nw_spans``, seed ``NW_SEED``): the
+# global fallback's fills at the evidence cells' sizes, and the digests of
+# their inputs and of lesv_tpu's ``global_align_pairs_host`` answers on
+# them (tests/test_torch_global_fallback.py holds lesv_tpu to these on the
+# CPU)
+NW_SEED = 15
+NW_SPANS_SHA256 = ("116d34f9e08f55d81dae8d43e734076e"
+                   "52fc2e823254080de8ed8db6adaf39da")
+NW_ANSWERS_SHA256 = ("d94772314092cd799a7a4cd1dc35472a"
+                     "4b8297cc4f15eb6cdf6dea941afc5e7b")
 SPANS_NOTE = ("span totals sum over the worker threads, so a total can "
               "exceed the wall time")
 
@@ -402,6 +418,18 @@ FILL_HIST_SHAPES = [("i16", "full", False, 64, 64, 1024),
                     ("i32", "diag", False, 2048, 1024, 64)]
 
 
+# fill_block (W above 2,048) at the shapes tools/torch_kernel_ab.py times,
+# as (mode, Qmax, W, B) of ``hist_case``, in the state type the gate picks:
+# the map's full-mode buckets of W 4,096 and 8,192 at their lane counts
+# (``align_batch._lanes_for``) and its diag bucket of Q 4,096, W 4,096; the
+# NW's full W 2,049 (runs of three slots) at 64 lanes; one NW lane each
+# with the row state in the global scratch, diag W 32,768 and full W 16,385
+FILL_BLOCK_SHAPES = [("full", 128, 4096, 64), ("full", 1024, 4096, 8),
+                     ("full", 256, 8192, 64), ("full", 2048, 8192, 8),
+                     ("diag", 4096, 4096, 8), ("full", 2048, 2049, 64),
+                     ("diag", 4096, 32768, 1), ("full", 8192, 16385, 1)]
+
+
 def hist_case(rng, shape):
     """(q, s, qlen, slen, W, mode, free_end) numpy batch of one bucket of
     the histogram: B lanes of query lengths in (Qmax/2, Qmax], subjects of
@@ -472,6 +500,140 @@ def _fill_outputs_equal(a, b, qlen, dirs: bool):
 # step, so the staging keeps pace or the walk waits)
 TRACEBACK_PROBES = dict(erun=(132, 4, 8192, "full", 0x09, 0, 8191),
                         mrun=(256, 4097, 512, "diag", 0x00, 4096, 256))
+
+
+def nw_spans():
+    """The whole-span NW pairs of phase fill, (read, subject) at 10% read
+    error: an 18 kb read across a 2.5 kb DEL (diag, W 8,192: ``fill_block``
+    in shared memory); a 53 kb and a 50 kb read across a 13 kb and a 10 kb
+    INS, each on 40 kb of subject (diag, W 32,768: one launch of two lanes,
+    the row state in the global scratch); an 8 kb read across an 8.4 kb DEL
+    (full, W 16,385: a width of no whole runs, in the global scratch)."""
+    import numpy as np
+
+    from lesv_tpu_torch.sim import mutate_read
+
+    rng = np.random.default_rng(NW_SEED)
+    pairs = []
+    for flank, sv, kind in ((9_000, 2_500, "DEL"), (20_000, 13_000, "INS"),
+                            (20_000, 10_000, "INS"), (4_000, 8_384, "DEL")):
+        a, x, b = (rng.integers(0, 4, n).astype(np.uint8)
+                   for n in (flank, sv, flank))
+        read = np.concatenate([a, x, b] if kind == "INS" else [a, b])
+        subject = np.concatenate([a, b] if kind == "INS" else [a, x, b])
+        pairs.append((mutate_read(rng, read, err=0.1), subject))
+    return pairs
+
+
+def nw_digest(pairs, alns=None) -> str:
+    """sha256 of NW pairs (``alns`` None) or of their Alignments: each
+    one's (qb, qe, sb, se, score) and ops, ``none`` for a pair without
+    one."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k, (q, s) in enumerate(pairs):
+        if alns is None:
+            h.update(np.array([len(q), len(s)], np.int64).tobytes())
+            h.update(np.ascontiguousarray(q, np.uint8).tobytes())
+            h.update(np.ascontiguousarray(s, np.uint8).tobytes())
+        elif alns[k] is None:
+            h.update(b"none")
+        else:
+            a = alns[k]
+            h.update(np.array([a.qb, a.qe, a.sb, a.se, a.score],
+                              np.int64).tobytes())
+            h.update(np.ascontiguousarray(a.ops, np.uint8).tobytes())
+    return h.hexdigest()
+
+
+def nw_span_cases(cfg, dev):
+    """``fill_block`` at the whole-span NW's launches (``nw_spans``, one
+    launch per band bucket, as ``align_batch.global_align_pairs_device``
+    packs them): the int32 fill kernel against its plain version (every
+    live direction byte, score, end cell, ok), one fill launch from a reset
+    each; then ``global_align_pairs_device`` on the card against the
+    port's native host NW and against lesv_tpu's answers
+    (``NW_ANSWERS_SHA256``), with its launches, counts and seconds."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from lesv_tpu_torch import _ext
+    from lesv_tpu_torch.ops import align_batch as ab
+    from lesv_tpu_torch.ops import align_torch as at
+
+    pairs = nw_spans()
+    if nw_digest(pairs) != NW_SPANS_SHA256:
+        raise AssertionError("nw_spans: the inputs differ from the pinned")
+    launches = [([0], 8192, "diag"), ([2, 1], 32768, "diag"),
+                ([3], 16385, "full")]
+    for idxs, W, mode in launches:
+        if [ab._nw_band0(len(pairs[i][0]), len(pairs[i][1]))
+                for i in idxs] != [W] * len(idxs):
+            raise AssertionError(f"nw_spans {idxs}: not at band {W}")
+        Q = len(pairs[idxs[-1]][0])
+        S = Q + W if mode == "diag" else W
+        B = len(idxs)
+        qn = np.zeros((B, Q), np.uint8)
+        sn = np.zeros((B, S), np.uint8)
+        qln = np.array([len(pairs[i][0]) for i in idxs], np.int32)
+        sln = np.array([len(pairs[i][1]) for i in idxs], np.int32)
+        for j, i in enumerate(idxs):
+            qn[j, : qln[j]] = pairs[i][0]
+            sn[j, : sln[j]] = pairs[i][1]
+        q, s, ql, sl = (torch.from_numpy(x).to(dev)
+                        for x in (qn, sn, qln, sln))
+        if at.i16_ok(Q, W, cfg):
+            raise AssertionError(f"nw_spans {idxs}: the int16 gate holds")
+        _ext.reset_launches()
+        k_ms, kout = once_ms(
+            lambda: at.fill_cuda(q, s, ql, sl, W, mode, cfg, False))
+        n_launched = dict(_ext.LAUNCHES)
+        p_ms, pout = once_ms(lambda: at.banded_align_kernel(
+            q, s, ql, sl, W, mode, cfg, False))
+        eq, dirs_eq, err = _fill_outputs_equal(kout, pout, ql, dirs=True)
+        state = _ext.function("fill", "lesv_fill_state_bytes",
+                              [_ext.I] * 3, ctypes.c_longlong)(W, 0, 4)
+        cells = int(qln.sum()) * W
+        emit(dict(phase="fill", kernel="fill", case="nw_span",
+                  shape=f"{mode} B={B} Q={Q} W={W}", equal=eq,
+                  dirs_equal=dirs_eq, max_abs_err=err,
+                  global_scratch=state > at.SMEM_CAP,
+                  fill_launches=n_launched["fill"], kernel_ms=k_ms,
+                  plain_ms=p_ms, kernel_gcells_s=cells / k_ms / 1e6))
+        if not eq or n_launched["fill"] != 1 or sum(n_launched.values()) != 1:
+            raise AssertionError(f"nw_span fill {mode} W={W}: mismatch or "
+                                 f"launches {n_launched}")
+        del kout, pout, q, s
+    _ext.reset_launches()
+    ab.reset_fill_stats()
+    t0 = time.time()
+    got = ab.global_align_pairs_device(pairs, cfg, dev)
+    card_s = time.time() - t0
+    n_launched, card = dict(_ext.LAUNCHES), dict(ab.FILL_STATS)
+    ab.reset_fill_stats()
+    t0 = time.time()
+    want = ab.global_align_pairs_host(pairs, cfg)
+    host_s = time.time() - t0
+    host = dict(ab.FILL_STATS)
+    eq_host = nw_digest(pairs, got) == nw_digest(pairs, want)
+    eq_jax = nw_digest(pairs, got) == NW_ANSWERS_SHA256
+    emit(dict(phase="fill", kernel="fill", case="nw_global_align",
+              pairs=len(pairs), equal_host=eq_host, equal_lesv_tpu=eq_jax,
+              launches=n_launched, fallback_device_fills=card[
+                  "fallback_device_fills"],
+              fallback_cells=card["fallback_cells"], card_s=card_s,
+              host_s=host_s))
+    if not (eq_host and eq_jax and all(a is not None for a in got)
+            and n_launched["fill"] == n_launched["traceback"] == 3
+            and card["fallback_device_fills"] == len(pairs)
+            and card["fallback_device_cells"] == card["fallback_cells"]
+            == host["fallback_cells"]):
+        raise AssertionError("nw_global_align: the card's NW differs")
 
 
 def traceback_probe(name: str, dev):
@@ -692,6 +854,7 @@ def phase_fill(rng, stats):
                 shape=f"diag B={B} R={Q + 1} W={W} T={T}", **tbb)
 
     fill_hist_cases(stats, cfg, dev)
+    nw_span_cases(cfg, dev)
 
     for name in TRACEBACK_PROBES:
         d, ei, eb, ok, W, mode, T = traceback_probe(name, dev)

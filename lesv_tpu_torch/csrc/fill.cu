@@ -68,14 +68,23 @@
 //    free_end keeps one best (value, row, slot) per thread and half, and
 //    reduces them by shuffles (and across the lane's warps) at the end.
 //  * fill_block, the wide design, for bands wider than 2,048 (the
-//    full-mode deletion bands of 4,096 to 8,192 and more): one CTA of up to 1,024 threads per lane, each thread a
-//    run of slots, H/F1/F2/DG and the F flags in shared memory (or in a
-//    global scratch where they do not fit), E not kept.  Two block barriers
-//    a row: one to publish the warp totals of the scan (combined by a
-//    shuffle scan in every warp), one to publish each thread's edge values
-//    (H, F1, F2 for the next row, E1/E2 for the neighbour's extension
-//    flags).  With fewer threads and longer runs it is slower: the runs'
-//    shared-memory chains, not the barriers, set its rows.
+//    full-mode deletion bands of 4,096 to 8,192, and the whole-span NW of
+//    the global fallback at bands to 65,536 and more): one CTA of up to
+//    1,024 threads per lane, each thread a run of slots, H/F1/F2/DG and the
+//    F flags in shared memory (or in a global scratch where they do not
+//    fit), E not kept.  The runs are stored interleaved (slot k of every
+//    thread's run side by side), so that a warp's accesses fall in
+//    consecutive elements: no bank conflicts, and whole lines of the
+//    scratch (stored run after run, the accesses of a warp at runs of 64
+//    slots touched 32 lines, and the scratch bands ran 5 to 8 times
+//    slower).  Two block barriers a row: one to publish the warp totals of
+//    the scan (combined by a shuffle scan in every warp), one to publish
+//    each thread's edge values (H, F1, F2 for the next row, E1/E2 for the
+//    neighbour's extension flags).  One lane is one SM, so a lane's rows
+//    set its time: 0.74e9 to 1.12e9 cells a second from W = 4,096 to 65,536
+//    on an H100.  The row's instructions bound it, not its memory traffic:
+//    loads issued four slots ahead, or whole lines for the subject codes
+//    and direction bytes, do not make it faster.
 // The launcher picks the design from W and the state type alone.
 
 #include <cuda_runtime.h>
@@ -720,10 +729,23 @@ __global__ void __launch_bounds__(Group<NW>::THREADS, 1)
 // The wide design: one CTA per lane, row state in shared memory (or a
 // global scratch), two block barriers a row.
 
+// threads of a lane: 1,024 from W = 1,024 on, else W in whole warps
+__host__ __device__ inline int block_threads(int W) {
+  return W >= 1024 ? 1024 : ((W + 31) / 32) * 32;
+}
+
+// slots of each row-state array: the band rounded up to whole runs of
+// every thread (runs of ceil(W / threads) slots)
+__host__ __device__ inline size_t block_slots(int W) {
+  const int nt = block_threads(W);
+  return (size_t)((W + nt - 1) / nt) * nt;
+}
+
 // bytes of row state per lane: H, F1, F2, DG of the state type and the F
 // flag bytes, rounded up to a multiple of 16
 __host__ __device__ inline size_t block_state_bytes(int W, int esz) {
-  return (((size_t)4 * W * esz + W + 15) / 16) * 16;
+  const size_t sw = block_slots(W);
+  return ((4 * sw * esz + sw + 15) / 16) * 16;
 }
 
 // T is the state type (int or short); every value is cut to T where it is
@@ -745,17 +767,21 @@ __global__ void __launch_bounds__(1024)
   uint8_t* base = gscratch
                       ? gscratch + (size_t)lane * block_state_bytes(W, sizeof(T))
                       : (uint8_t*)smem;
-  T* H = (T*)base;
-  T* F1 = H + W;
-  T* F2 = F1 + W;
-  T* DG = F2 + W;
-  uint8_t* FL = (uint8_t*)(DG + W);
-
   const int nt = blockDim.x, tid = threadIdx.x;
   const int wl = tid & 31, wid = tid >> 5, nw = nt >> 5;
   const int spt = (W + nt - 1) / nt;
   const int b0 = min(tid * spt, W), b1 = min(b0 + spt, W);
   const bool own = b1 > b0;
+  const size_t sw = (size_t)spt * nt;
+  T* H = (T*)base;
+  T* F1 = H + sw;
+  T* F2 = F1 + sw;
+  T* DG = F2 + sw;
+  uint8_t* FL = (uint8_t*)(DG + sw);
+  // the runs interleaved: slot b0 + k of this thread's run lies at
+  // k * nt + tid, so that the threads of a warp touch consecutive elements
+  // (no bank conflicts in shared memory, whole lines of the scratch)
+  auto at = [&](int b) { return (b - b0) * nt + tid; };
   const int W2 = W / 2;
   const uint8_t* ql = q + (size_t)lane * Qmax;
   const uint8_t* sl = s + (size_t)lane * Smax;
@@ -775,12 +801,12 @@ __global__ void __launch_bounds__(1024)
       e1 = NEG;
       e2 = NEG;
     }
-    H[b] = (T)h;
-    F1[b] = (T)NEG;
-    F2[b] = (T)NEG;
+    H[at(b)] = (T)h;
+    F1[at(b)] = (T)NEG;
+    F2[at(b)] = (T)NEG;
     dl[b] = (uint8_t)(((T)e1 >= (T)e2 ? 1 : 2) | 0x18);
   }
-  xH[tid] = own ? (int)H[DIAG ? b0 : b1 - 1] : NEG;
+  xH[tid] = own ? (int)H[at(DIAG ? b0 : b1 - 1)] : NEG;
   xF1[tid] = NEG;
   xF2[tid] = NEG;
   __syncthreads();
@@ -802,19 +828,20 @@ __global__ void __launch_bounds__(1024)
     }
     int prevH = nbH;  // full mode: old H[b - 1]
     for (int b = b0; b < b1; ++b) {
+      const int x = at(b);
       int Hd, Hu, F1u, F2u;
       if (DIAG) {
-        Hd = H[b];
+        Hd = H[x];
         const bool in = b + 1 < b1;
-        Hu = in ? (int)H[b + 1] : nbH;
-        F1u = in ? (int)F1[b + 1] : nbF1;
-        F2u = in ? (int)F2[b + 1] : nbF2;
+        Hu = in ? (int)H[x + nt] : nbH;
+        F1u = in ? (int)F1[x + nt] : nbF1;
+        F2u = in ? (int)F2[x + nt] : nbF2;
       } else {
         Hd = prevH;
-        Hu = H[b];
+        Hu = H[x];
         prevH = Hu;
-        F1u = F1[b];
-        F2u = F2[b];
+        F1u = F1[x];
+        F2u = F2[x];
       }
       const int js = DIAG ? i - W2 + b : b;
       const int si = js - 1;
@@ -829,11 +856,11 @@ __global__ void __launch_bounds__(1024)
         tmax1 = max(tmax1, (int)(T)(hpre + b * ge1));
         tmax2 = max(tmax2, (int)(T)(hpre + b * ge2));
       }
-      H[b] = (T)hpre;
-      DG[b] = (T)dg;
-      F1[b] = (T)f1n;
-      F2[b] = (T)f2n;
-      FL[b] = (uint8_t)(((f1n == f1e) << 5) | ((f2n == f2e) << 6));
+      H[x] = (T)hpre;
+      DG[x] = (T)dg;
+      F1[x] = (T)f1n;
+      F2[x] = (T)f2n;
+      FL[x] = (uint8_t)(((f1n == f1e) << 5) | ((f2n == f2e) << 6));
     }
 
     // the scan: inclusive within the warp, warp totals through shared
@@ -881,8 +908,9 @@ __global__ void __launch_bounds__(1024)
     uint8_t* drow = dl + (size_t)i * W;
     int e1p = NEG, e2p = NEG, e1f = NEG, e2f = NEG, d0 = 0;
     for (int b = b0; b < b1; ++b) {
+      const int x = at(b);
       const int js = DIAG ? i - W2 + b : b;
-      const int hpre = H[b];
+      const int hpre = H[x];
       const int e1 = c1 > THR ? (T)((T)(c1 - go1) - b * ge1) : NEG;
       const int e2 = c2 > THR ? (T)((T)(c2 - go2) - b * ge2) : NEG;
       if (hpre > THR) {
@@ -891,13 +919,13 @@ __global__ void __launch_bounds__(1024)
       }
       int hn = max(hpre, max(e1, e2));
       if (!(js >= 0 && js <= SL)) hn = NEG;
-      const int dg = DG[b];
+      const int dg = DG[x];
       const int src = hn == dg ? 0
                       : hn == e1 ? 1
                       : hn == e2 ? 2
-                      : hn == F1[b] ? 3
+                      : hn == F1[x] ? 3
                                     : 4;
-      const int d = src | FL[b];
+      const int d = src | FL[x];
       if (b == b0) {
         e1f = e1;
         e2f = e2;
@@ -908,17 +936,17 @@ __global__ void __launch_bounds__(1024)
       }
       e1p = e1;
       e2p = e2;
-      H[b] = (T)hn;
+      H[x] = (T)hn;
       if (FREE_END && hn > best) {
         best = hn;
         bi = i;
         bb = b;
       }
     }
-    xH[tid] = own ? (int)H[DIAG ? b0 : b1 - 1] : NEG;
+    xH[tid] = own ? (int)H[at(DIAG ? b0 : b1 - 1)] : NEG;
     if (DIAG) {
-      xF1[tid] = own ? (int)F1[b0] : NEG;
-      xF2[tid] = own ? (int)F2[b0] : NEG;
+      xF1[tid] = own ? (int)F1[at(b0)] : NEG;
+      xF2[tid] = own ? (int)F2[at(b0)] : NEG;
     }
     xE1[tid] = e1p;
     xE2[tid] = e2p;
@@ -948,7 +976,9 @@ __global__ void __launch_bounds__(1024)
           bb = rb[2][w];
         }
   } else if (tid == 0) {
-    sc = H[min(max(eb, 0), W - 1)];
+    // slot c is slot c % spt of thread c / spt's run
+    const int c = min(max(eb, 0), W - 1);
+    sc = H[(c % spt) * nt + c / spt];
     if (sizeof(T) == 2 && sc <= THR) sc = NEG32;
   }
   if (tid == 0)
@@ -995,7 +1025,7 @@ static int dispatch_warp(const Args& a) {
 
 template <typename T, bool D, bool F>
 static int launch_block(const Args& a) {
-  const int nt = a.W >= 1024 ? 1024 : ((a.W + 31) / 32) * 32;
+  const int nt = block_threads(a.W);
   const size_t smem = a.scratch ? 0 : block_state_bytes(a.W, sizeof(T));
   // with the static edge buffers this passes the 48 KB default, so the
   // kernel's cap is raised to this launch's size.  The cap belongs to the

@@ -46,10 +46,20 @@ that fails raises.
 to the device fill, and apart the pairs of ``_host_route``
 (``host_routed``) and the chunks of ``_chunk_prefers_host``
 (``chunks_to_host``), and apart again the whole-span NW of the global
-fallback (``fallback_fills``, ``fallback_cells``, ``fallback_kept``).
+fallback (``fallback_fills``, ``fallback_cells``, ``fallback_kept``, on
+either path) and the part of it the card ran
+(``fallback_device_fills``, ``fallback_device_cells``).
 The host helpers (:func:`align_pairs_host`,
 :func:`global_align_pairs_host` and the band-widening numpy retry) are
 the JAX package's, on the port's native library.
+
+The whole-span NW of the global fallback has a card counterpart,
+:func:`global_align_pairs_device`: the same bands, escapes and answers as
+:func:`global_align_pairs_host`, its pairs bucketed by (power-of-two
+query length, band, mode) and launched through
+:func:`align_torch.banded_align_dispatch` with at most
+``FALLBACK_DIRS_BYTES`` of direction bytes on the card at once; a pair
+whose own direction bytes pass that runs on the host.
 """
 
 from __future__ import annotations
@@ -86,10 +96,13 @@ from lesv_tpu_torch.utils import profiling
 # The whole-span NW of global_align_pairs_host is apart: fallback_cells
 # its cells, every band attempt included; fallback_fills and
 # fallback_kept (batch_align._apply_global_fallback) the pairs sent to it
-# and the answers that replaced the anchored alignment
+# and the answers that replaced the anchored alignment, on either path;
+# fallback_device_fills the pairs global_align_pairs_device solved on the
+# card and fallback_device_cells their cells, every band attempt
 FILL_STATS = {"device_fills": 0, "device_cells": 0, "host_fills": 0,
               "host_cells": 0, "host_routed": 0, "chunks_to_host": 0,
-              "fallback_fills": 0, "fallback_cells": 0, "fallback_kept": 0}
+              "fallback_fills": 0, "fallback_cells": 0, "fallback_kept": 0,
+              "fallback_device_fills": 0, "fallback_device_cells": 0}
 
 
 _FILL_STATS_LOCK = threading.Lock()
@@ -184,6 +197,45 @@ def _monster(max_q: int, W: int, n_live: int) -> bool:
     return _rq(max_q) * W * Bs >= MONSTER_DIRS_BYTES
 
 
+def _align_lanes(pairs, idxs: list[int], Qm: int, Sm: int, W: int,
+                 mode: str, cfg: AlignConfig, device, free_end: bool = False,
+                 force_i16: bool | None = None) -> list[Alignment | None]:
+    """One launch of the pairs ``idxs``: queries padded to ``Qm`` columns,
+    subjects cut at ``Sm`` (diag: columns past Qmax + W lie outside every
+    band row), the fill and traceback through
+    :func:`align_torch.banded_align_dispatch` and
+    :func:`align_torch.banded_align_finish`, and each lane's
+    :class:`Alignment`, untrimmed; None where the lane escaped its band."""
+    B = len(idxs)
+    qb = np.zeros((B, Qm), np.uint8)
+    sb = np.zeros((B, Sm), np.uint8)
+    qlen = np.zeros(B, np.int32)
+    slen = np.zeros(B, np.int32)
+    for j, i in enumerate(idxs):
+        q, s = pairs[i]
+        s = s[:Sm]
+        qb[j, : len(q)] = q
+        sb[j, : len(s)] = s
+        qlen[j] = len(q)
+        slen[j] = len(s)
+    with profiling.trace("align/dispatch"):
+        pend = banded_align_dispatch(qb, sb, qlen, slen, W, mode, cfg,
+                                     free_end=free_end, device=device,
+                                     force_i16=force_i16)
+    with profiling.trace("align/finish"):
+        out = banded_align_finish(pend)
+    res: list[Alignment | None] = []
+    for j in range(B):
+        if not out["ok"][j]:
+            res.append(None)
+            continue
+        n = int(out["nops"][j])
+        res.append(Alignment(0, int(out["qe"][j]), 0, int(out["se"][j]),
+                             out["ops"][j][:n].astype(np.uint8),
+                             score=int(out["score"][j])))
+    return res
+
+
 def align_pairs(
     pairs: Sequence[tuple[np.ndarray, np.ndarray]],
     cfg: AlignConfig | None = None,
@@ -224,35 +276,16 @@ def align_pairs(
 
     def run_chunk(chunk: list[int], Qm: int, Sm: int, W: int, mode: str,
                   dev) -> None:
-        B = len(chunk)
-        qb = np.zeros((B, Qm), np.uint8)
-        sb = np.zeros((B, Sm), np.uint8)
-        qlen = np.zeros(B, np.int32)
-        slen = np.zeros(B, np.int32)
-        for j, i in enumerate(chunk):
-            q, s = pairs[i]
-            s = s[:Sm]             # diag: cols past Qmax+W are
-            qb[j, : len(q)] = q    # outside every band row
-            sb[j, : len(s)] = s
-            qlen[j] = len(q)
-            slen[j] = len(s)
-        with profiling.trace("align/dispatch"):
-            pend = banded_align_dispatch(qb, sb, qlen, slen, W, mode, cfg,
-                                         free_end=free_end, device=dev,
-                                         force_i16=force_i16)
-        with profiling.trace("align/finish"):
-            out = banded_align_finish(pend)
+        out = _align_lanes(pairs, chunk, Qm, Sm, W, mode, cfg, dev,
+                           free_end=free_end, force_i16=force_i16)
         escaped = []
-        for j, i in enumerate(chunk):
-            if not out["ok"][j]:
+        for i, a in zip(chunk, out):
+            if a is None:
                 escaped.append(i)
-                continue
-            n = int(out["nops"][j])
-            results[i] = Alignment(
-                0, int(out["qe"][j]), 0, int(out["se"][j]),
-                out["ops"][j][:n].astype(np.uint8),
-                score=int(out["score"][j]))
-        _count_fills(device_fills=B, device_cells=int(qlen.sum()) * W)
+            else:
+                results[i] = a
+        _count_fills(device_fills=len(chunk), device_cells=sum(
+            len(pairs[i][0]) for i in chunk) * W)
         with lock:
             retry.extend(escaped)
 
@@ -321,6 +354,59 @@ def align_pairs(
 TINY_SEG = 16
 
 
+def _nw_band0(lq: int, ls: int) -> int:
+    """First band of the whole-span NW: twice the length imbalance (the
+    path's diagonal drift bound) plus 1,024, a power of two, at most the
+    full width ``ls + 1``."""
+    return min(ls + 1, _next_pow2(2 * abs(ls - lq) + 1024, lo=256,
+                                  hi=1 << 17))
+
+
+def _nw_cells(lq: int, ls: int, W: int) -> int:
+    """Cells of one band attempt: lq x W on the diagonal band, the whole
+    (lq + 1) x (ls + 1) rectangle at full width."""
+    return lq * W if W < ls + 1 else (lq + 1) * (ls + 1)
+
+
+def _nw_host_one(q: np.ndarray, s: np.ndarray, cfg: AlignConfig,
+                 W: int) -> Alignment | None:
+    """The native NW of one whole span from band ``W``, doubled on each
+    escape up to the full width; trimmed to the exact-match ends."""
+    lq, ls = len(q), len(s)
+    if lq == 0 or ls == 0:
+        return None
+    a: Alignment | None = None
+    cells = 0
+    while True:
+        mode_diag = W < ls + 1
+        cells += _nw_cells(lq, ls, W)
+        r = native.banded_align_one(
+            q, s, int(W), mode_diag, cfg.match, cfg.mismatch,
+            cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2,
+            cfg.gap_ext2, False)
+        if r is not None:
+            ops, score, qe, se = r
+            a = Alignment(0, qe, 0, se, ops, score=score)
+        if a is not None or W >= ls + 1:
+            break
+        W = min(W * 2, ls + 1)
+    _count_fills(fallback_cells=cells)
+    if a is not None:
+        a = trim_to_exact_match(a, q, s, cfg.end_match_len)
+    return a
+
+
+def _nw_host_many(pairs, bands, cfg: AlignConfig) -> list[Alignment | None]:
+    """:func:`_nw_host_one` of each pair from its band; several pairs
+    spread over the host workers (ctypes releases the GIL)."""
+    if len(pairs) > 1:
+        with _fut.ThreadPoolExecutor(
+                max_workers=_n_host_workers()) as pool:
+            return list(pool.map(lambda p, w: _nw_host_one(*p, cfg, w),
+                                 pairs, bands))
+    return [_nw_host_one(q, s, cfg, w) for (q, s), w in zip(pairs, bands)]
+
+
 def global_align_pairs_host(
     pairs: Sequence[tuple[np.ndarray, np.ndarray]],
     cfg: AlignConfig | None = None,
@@ -337,43 +423,123 @@ def global_align_pairs_host(
     2x the length imbalance (the path's diagonal drift bound) and widens
     on band escape; results are trimmed to the exact-match-end invariant.
     """
+    return _nw_host_many(pairs, [_nw_band0(len(q), len(s))
+                                 for q, s in pairs], cfg or AlignConfig())
+
+
+# direction bytes of the global fallback's NW on the card at once, over
+# every launch in flight (lanes x (longest query + 1) x W each); a pair
+# whose own bytes pass it runs on the host
+FALLBACK_DIRS_BYTES = 8 << 30
+
+
+def global_align_pairs_device(
+    pairs: Sequence[tuple[np.ndarray, np.ndarray]],
+    cfg: AlignConfig | None = None,
+    device="cuda",
+) -> list[Alignment | None]:
+    """:func:`global_align_pairs_host` on the fill and traceback of
+    ``device`` (the kernels on a card, their plain versions on the CPU),
+    pair for pair the same answers.
+
+    Each pair starts at the host's first band, in diag mode while the band
+    is narrower than ``ls + 1`` and at full width ``ls + 1`` after; the
+    pairs of one round go into (power-of-two query length, band, mode)
+    buckets, each sorted by query length and cut into launches of at most
+    ``FALLBACK_DIRS_BYTES`` of direction bytes (a launch's rows are its
+    longest query's; the fill runs each lane to its own), which run through
+    ``banded_align_dispatch`` and ``banded_align_finish`` (on a card on the
+    stream pool, at most ``FALLBACK_DIRS_BYTES`` in flight).  A lane that
+    escapes its band goes again in the next round at twice it, up to the
+    full width; a pair whose launch alone would pass the cap goes to the
+    host NW from its band."""
     cfg = cfg or AlignConfig()
+    results: list[Alignment | None] = [None] * len(pairs)
+    band = {i: _nw_band0(len(q), len(s)) for i, (q, s) in enumerate(pairs)
+            if len(q) and len(s)}
+    to_host: dict[int, int] = {}
+    cells = {i: 0 for i in band}
 
-    def one(pair):
-        q, s = pair
-        lq, ls = len(q), len(s)
-        if lq == 0 or ls == 0:
-            return None
-        W = min(ls + 1, _next_pow2(2 * abs(ls - lq) + 1024, lo=256,
-                                   hi=1 << 17))
-        a: Alignment | None = None
-        cells = 0
-        while True:
-            mode_diag = W < ls + 1
-            cells += lq * W if mode_diag else (lq + 1) * (ls + 1)
-            r = native.banded_align_one(
-                q, s, int(W), mode_diag, cfg.match, cfg.mismatch,
-                cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2,
-                cfg.gap_ext2, False)
-            if r is not None:
-                ops, score, qe, se = r
-                a = Alignment(0, qe, 0, se, ops, score=score)
-            if a is not None or W >= ls + 1:
-                break
-            W = min(W * 2, ls + 1)
-        _count_fills(fallback_cells=cells)
-        if a is not None:
-            a = trim_to_exact_match(a, q, s, cfg.end_match_len)
-        return a
+    def run_launch(idxs: list[int], W: int, mode: str):
+        # a launch's rows are its longest query's; in diag mode a subject
+        # longer than Qm + W ends outside the band whether cut there or
+        # not, so the cut changes no answer
+        Qm = len(pairs[idxs[-1]][0])
+        return _align_lanes(pairs, idxs, Qm,
+                            Qm + W if mode == "diag" else W, W, mode, cfg,
+                            device)
 
-    if len(pairs) > 1:
-        # ctypes releases the GIL: spread the whole-span NWs over cores
-        import concurrent.futures as _fut
+    cv = threading.Condition()
+    room = [FALLBACK_DIRS_BYTES]        # direction bytes free to launch
 
-        with _fut.ThreadPoolExecutor(
-                max_workers=_n_host_workers()) as pool:
-            return list(pool.map(one, pairs))
-    return [one(p) for p in pairs]
+    def run_budgeted(nbytes: int, *args):
+        try:
+            return run_launch(*args)
+        finally:
+            with cv:
+                room[0] += nbytes
+                cv.notify_all()
+
+    def dirs_bytes(launch) -> int:
+        idxs, W, _ = launch
+        return len(idxs) * (len(pairs[idxs[-1]][0]) + 1) * W
+
+    nd = _n_dispatch_workers(device)
+    while band:
+        buckets: dict[tuple[int, int, str], list[int]] = {}
+        for i, W in band.items():
+            q, s = pairs[i]
+            if (len(q) + 1) * W > FALLBACK_DIRS_BYTES:
+                to_host[i] = W
+                continue
+            cells[i] += _nw_cells(len(q), len(s), W)
+            buckets.setdefault((_next_pow2(len(q), hi=1 << 31), W,
+                                "diag" if W < len(s) + 1 else "full"),
+                               []).append(i)
+        launches = []
+        for (_, W, mode), idxs in buckets.items():
+            idxs.sort(key=lambda i: len(pairs[i][0]))
+            cut = [idxs[0]]
+            for i in idxs[1:]:
+                if (len(cut) + 1) * (len(pairs[i][0]) + 1) * W \
+                        > FALLBACK_DIRS_BYTES:
+                    launches.append((cut, W, mode))
+                    cut = []
+                cut.append(i)
+            launches.append((cut, W, mode))
+        # the largest fills first, so that small ones fill in beside them
+        launches.sort(key=lambda la: -dirs_bytes(la) // len(la[0]))
+        if nd <= 1 or len(launches) == 1:
+            outs = [run_launch(*la) for la in launches]
+        else:
+            futs = []
+            with StreamPool(nd, device) as pool:
+                for la in launches:
+                    nbytes = dirs_bytes(la)
+                    with cv:
+                        cv.wait_for(lambda: room[0] >= nbytes)
+                        room[0] -= nbytes
+                    futs.append(pool.submit(run_budgeted, nbytes, *la))
+            outs = [f.result() for f in futs]
+        band = {}
+        for (idxs, W, _), out in zip(launches, outs):
+            for i, a in zip(idxs, out):
+                q, s = pairs[i]
+                if a is not None:
+                    results[i] = trim_to_exact_match(a, q, s,
+                                                     cfg.end_match_len)
+                elif W < len(s) + 1:
+                    band[i] = min(W * 2, len(s) + 1)
+    on_card = [i for i in cells if i not in to_host]
+    _count_fills(fallback_cells=sum(cells.values()),
+                 fallback_device_cells=sum(cells.values()),
+                 fallback_device_fills=len(on_card))
+    if to_host:
+        hs = sorted(to_host)
+        for i, a in zip(hs, _nw_host_many([pairs[i] for i in hs],
+                                          [to_host[i] for i in hs], cfg)):
+            results[i] = a
+    return results
 
 
 def align_pairs_host(

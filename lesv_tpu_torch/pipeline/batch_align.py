@@ -22,6 +22,7 @@ import concurrent.futures as _fut
 import os
 
 import numpy as np
+import torch
 
 from lesv_tpu_torch.config import LesvConfig
 from lesv_tpu_torch.ops import align_batch
@@ -155,7 +156,7 @@ def chain_and_align_many(
 ) -> list[Alignment | None]:
     """Best-chain anchored alignment for each (q, s) pair, batched; with
     ``global_fallback``, pairs whose anchored alignment leaves an end
-    unaligned fall back to the host whole-span global DP."""
+    unaligned fall back to the whole-span global DP."""
     k = k or cfg.memsc.kmer_size
     all_chains = batch_pair_chains(pairs, cfg, k=k, device=device)
     tasks = []
@@ -171,17 +172,21 @@ def chain_and_align_many(
     for i, a in zip(mapping, outs):
         res[i] = a
     if global_fallback:
-        _apply_global_fallback(pairs, res, cfg)
+        _apply_global_fallback(pairs, res, cfg, device)
     return res
 
 
-def _apply_global_fallback(pairs, res, cfg: LesvConfig,
+def _apply_global_fallback(pairs, res, cfg: LesvConfig, device,
                            end_gap: int = 128) -> None:
     """Replace alignments that leave more than ``end_gap`` unaligned at
-    any end with the host whole-span NW when that covers more of the
-    span (``lesv_tpu.pipeline.batch_align._apply_global_fallback``).
-    ``FILL_STATS`` counts the pairs sent to the NW (``fallback_fills``)
-    and the answers kept (``fallback_kept``)."""
+    any end with the whole-span NW when that covers more of the span
+    (``lesv_tpu.pipeline.batch_align._apply_global_fallback``).  The NW
+    runs on the card's fill and traceback kernels for a ``cuda`` device
+    (``align_batch.global_align_pairs_device``) and on the native host
+    library otherwise (``global_align_pairs_host``: the plain torch fill of
+    whole spans would be far slower on the CPU); both give the same
+    answers.  ``FILL_STATS`` counts the pairs sent to the NW
+    (``fallback_fills``) and the answers kept (``fallback_kept``)."""
     idxs = []
     for i, ((q, s), a) in enumerate(zip(pairs, res)):
         if len(q) == 0 or len(s) == 0:
@@ -192,8 +197,12 @@ def _apply_global_fallback(pairs, res, cfg: LesvConfig,
     if not idxs:
         return
     with profiling.trace("align/global_fallback"):
-        galns = global_align_pairs_host([pairs[i] for i in idxs],
-                                        cfg.align)
+        span_pairs = [pairs[i] for i in idxs]
+        if torch.device(device).type == "cuda":
+            galns = align_batch.global_align_pairs_device(
+                span_pairs, cfg.align, device)
+        else:
+            galns = global_align_pairs_host(span_pairs, cfg.align)
     kept = 0
     for i, ga in zip(idxs, galns):
         if ga is None:

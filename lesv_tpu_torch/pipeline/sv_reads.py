@@ -134,7 +134,7 @@ def realign_span(qstore: SeqStore, sstore: SeqStore, qid: int, qdir: int,
         # whole-span NW fallback (the reference always full-DPs this span,
         # `align_subseqs.c:193-262`); see batch_align._apply_global_fallback
         res = [aln]
-        _apply_global_fallback([(q, s)], res, cfg)
+        _apply_global_fallback([(q, s)], res, cfg, device)
         aln = res[0]
     if aln is None:
         return None

@@ -923,3 +923,98 @@ def test_pinned_f1_case_on_the_card_equals_lesv_tpu(dev, tmp_path,
     assert hashlib.sha256(vcf).hexdigest() == chip_smoke.PINNED_VCF_SHA256
     assert all(rep["launches"][k] > 0
                for k in ("fill_i16", "chain", "traceback")), rep["launches"]
+
+
+def _chip_smoke(monkeypatch):
+    import os
+
+    monkeypatch.syspath_prepend(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_global_fallback_nw_on_the_card_equals_host(dev, monkeypatch):
+    """The global fallback's whole-span NW on the card's fill and
+    traceback kernels (``global_align_pairs_device``) against the native
+    host NW and lesv_tpu's answers on spans of the evidence cells' size
+    (``chip_smoke.nw_spans``): an 18 kb read across a 2.5 kb DEL (diag,
+    W 8,192), 53 kb and 50 kb reads across 13 kb and 10 kb INS on 40 kb of
+    subject (diag, W 32,768, one launch), an 8 kb read across an 8.4 kb DEL
+    (full, W 16,385), in one call: identical Alignments, the digest that
+    tests/test_torch_global_fallback.py holds lesv_tpu's
+    ``global_align_pairs_host`` to, every pair solved on the card, the same
+    cells."""
+    from lesv_tpu_torch.ops import align_batch
+
+    cs = _chip_smoke(monkeypatch)
+    pairs = cs.nw_spans()
+    assert cs.nw_digest(pairs) == cs.NW_SPANS_SHA256
+    bands = [align_batch._nw_band0(len(q), len(s)) for q, s in pairs]
+    assert bands == [8_192, 32_768, 32_768, 16_385]
+    assert [W < len(s) + 1 for W, (_, s) in zip(bands, pairs)] == \
+        [True, True, True, False]
+    cfg = AlignConfig()
+    _reset_counts()
+    got = align_batch.global_align_pairs_device(pairs, cfg, dev)
+    card = dict(align_batch.FILL_STATS)
+    launches = dict(_ext.LAUNCHES)
+    align_batch.reset_fill_stats()
+    want = align_batch.global_align_pairs_host(pairs, cfg)
+    host = dict(align_batch.FILL_STATS)
+    for g, w in zip(got, want):
+        assert w is not None and g is not None
+        assert (g.qb, g.qe, g.sb, g.se, g.score) == \
+            (w.qb, w.qe, w.sb, w.se, w.score)
+        np.testing.assert_array_equal(g.ops, w.ops)
+    assert cs.nw_digest(pairs, got) == cs.NW_ANSWERS_SHA256
+    assert card["fallback_device_fills"] == 4
+    assert card["fallback_device_cells"] == card["fallback_cells"] == \
+        host["fallback_cells"] > 0
+    assert launches["fill"] == launches["traceback"] == 3
+    assert launches.get("fill_i16", 0) == 0
+
+
+def test_global_fallback_nw_over_a_small_cap_on_the_card(dev, monkeypatch):
+    """The card's NW with ``FALLBACK_DIRS_BYTES`` patched small: a pair
+    whose own direction bytes pass the cap runs on the host NW (its native
+    calls seen), a bucket of three lanes is cut into launches of one lane
+    that wait on the byte budget in the stream pool, and every answer
+    equals the host NW's."""
+    from lesv_tpu_torch import native
+    from lesv_tpu_torch.ops import align_batch
+
+    rng = np.random.default_rng(151)
+    pairs = []
+    for n in (3_000, 3_100, 3_200, 6_000):
+        s = rng.integers(0, 4, n).astype(np.uint8)
+        pairs.append((mutate_read(rng, s, err=0.1), s))
+    own = [(len(q) + 1) * align_batch._nw_band0(len(q), len(s))
+           for q, s in pairs]
+    assert max(own[:3]) < own[3]
+    monkeypatch.setattr(align_batch, "FALLBACK_DIRS_BYTES", max(own[:3]))
+    calls = []
+    real = native.banded_align_one
+
+    def seen(q, s, *a):
+        calls.append(len(q))
+        return real(q, s, *a)
+
+    monkeypatch.setattr(native, "banded_align_one", seen)
+    cfg = AlignConfig()
+    _reset_counts()
+    got = align_batch.global_align_pairs_device(pairs, cfg, dev)
+    card = dict(align_batch.FILL_STATS)
+    launches = dict(_ext.LAUNCHES)
+    assert calls == [len(pairs[3][0])]
+    monkeypatch.setattr(native, "banded_align_one", real)
+    want = align_batch.global_align_pairs_host(pairs, cfg)
+    for g, w in zip(got, want):
+        assert w is not None and g is not None
+        assert (g.qb, g.qe, g.sb, g.se, g.score) == \
+            (w.qb, w.qe, w.sb, w.se, w.score)
+        np.testing.assert_array_equal(g.ops, w.ops)
+    assert card["fallback_device_fills"] == 3
+    assert launches["fill"] + launches.get("fill_i16", 0) == 3
+    assert launches["traceback"] == 3

@@ -22,7 +22,10 @@ issue a call meanwhile, the host cost alone):
 * the traceback's C entry point alone at Q=256 (outputs allocated once,
   no wrapper): its ``_host_ms`` is the launcher's host cost;
 * the traceback on the two probes of ``chip_smoke.TRACEBACK_PROBES``;
-* the chain scan at B=128 J=64, M=16384 and M=8192.
+* the chain scan at B=128 J=64, M=16384 and M=8192;
+* ``fill_block`` at ``chip_smoke.FILL_BLOCK_SHAPES`` (the map's and the
+  whole-span NW's bands above 2,048), in the state type the gate picks,
+  over ``BLOCK_REPS`` calls each.
 
 Each turn prints one JSON line; the last line holds the mean of the two
 turns of each tree and the ratio A / B.  Outputs of the two trees are
@@ -40,6 +43,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 20  # calls a timing
+BLOCK_REPS = 5  # calls a timing of fill_block (up to a second a call)
 
 
 def _launcher(dirs, end_i, end_b, ok, W, mode, T):
@@ -88,19 +92,19 @@ def _turn(tree: str) -> dict:
     rng = np.random.default_rng(0)
     out = dict(tree=tree)
 
-    def timed(name, fn):
-        out[f"{name}_ms"] = cs.cuda_ms(fn, REPS)
+    def timed(name, fn, reps=REPS):
+        out[f"{name}_ms"] = cs.cuda_ms(fn, reps)
         out[f"{name}_device_ms"], out[f"{name}_host_ms"] = (
-            cs.device_host_ms(fn, REPS))
+            cs.device_host_ms(fn, reps))
 
-    def fill(name, case, i16):
+    def fill(name, case, i16, reps=REPS):
         """Time one fill and keep its checksums: live direction bytes,
         score, end cell and ok."""
         qn, sn, qln, sln, W, mode, fe = case
         q, s, ql, sl = (torch.from_numpy(x).to(dev)
                         for x in (qn, sn, qln, sln))
         timed(name, lambda: at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe,
-                                         i16=i16))
+                                         i16=i16), reps)
         res = at.fill_cuda(q, s, ql, sl, W, mode, cfg, fe, i16=i16)
         live = (torch.arange(res[0].shape[1], device=dev)[None, :, None]
                 <= ql[:, None, None])
@@ -143,6 +147,11 @@ def _turn(tree: str) -> dict:
         f, p, v = ct.chain_scan_cuda(qs, ss_, vs, **args)
         out[f"chain_M{M}_sum"] = [int(f.long().sum()), int(p.long().sum()),
                                   int(v.long().sum())]
+    for mode, Q, W, B in cs.FILL_BLOCK_SHAPES:
+        i16 = at.i16_ok(Q, W, cfg)
+        fill(f"block_{'i16' if i16 else 'i32'}_{mode}_Q{Q}_W{W}_B{B}",
+             cs.hist_case(rng, (None, mode, False, Q, W, B)), i16,
+             BLOCK_REPS)
     return out
 
 
