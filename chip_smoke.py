@@ -25,8 +25,9 @@ Phases, each printing one JSON line:
    generator) against its plain version and, int16, against the int32
    kernel, ``fill_block`` at the whole-span NW's launches of the global
    fallback (``nw_spans``: 18 to 53 kb reads, diag W 8,192 and 32,768 and
-   full W 16,385, the last two with the row state in the global scratch)
-   against its plain version, one launch each from a reset, and
+   full W 16,385, each lane split over a cluster of 8 or 16 CTAs by
+   ``align_torch.cluster_split``) against its plain version, one launch
+   each from a reset, and
    ``align_batch.global_align_pairs_device`` on them against the native
    host NW and lesv_tpu's answers (``NW_ANSWERS_SHA256``), and one shape
    outside the gate, which must raise.  Exact equality (tolerance 0: all values
@@ -422,8 +423,9 @@ FILL_HIST_SHAPES = [("i16", "full", False, 64, 64, 1024),
 # as (mode, Qmax, W, B) of ``hist_case``, in the state type the gate picks:
 # the map's full-mode buckets of W 4,096 and 8,192 at their lane counts
 # (``align_batch._lanes_for``) and its diag bucket of Q 4,096, W 4,096; the
-# NW's full W 2,049 (runs of three slots) at 64 lanes; one NW lane each
-# with the row state in the global scratch, diag W 32,768 and full W 16,385
+# NW's full W 2,049 (runs of three slots) at 64 lanes; one NW lane each,
+# diag W 32,768 and full W 16,385 (the row state in the global scratch at
+# one CTA a lane, in shared memory when split over a cluster of 16)
 FILL_BLOCK_SHAPES = [("full", 128, 4096, 64), ("full", 1024, 4096, 8),
                      ("full", 256, 8192, 64), ("full", 2048, 8192, 8),
                      ("diag", 4096, 4096, 8), ("full", 2048, 2049, 64),
@@ -504,11 +506,12 @@ TRACEBACK_PROBES = dict(erun=(132, 4, 8192, "full", 0x09, 0, 8191),
 
 def nw_spans():
     """The whole-span NW pairs of phase fill, (read, subject) at 10% read
-    error: an 18 kb read across a 2.5 kb DEL (diag, W 8,192: ``fill_block``
-    in shared memory); a 53 kb and a 50 kb read across a 13 kb and a 10 kb
-    INS, each on 40 kb of subject (diag, W 32,768: one launch of two lanes,
-    the row state in the global scratch); an 8 kb read across an 8.4 kb DEL
-    (full, W 16,385: a width of no whole runs, in the global scratch)."""
+    error: an 18 kb read across a 2.5 kb DEL (diag, W 8,192); a 53 kb and a
+    50 kb read across a 13 kb and a 10 kb INS, each on 40 kb of subject
+    (diag, W 32,768: one launch of two lanes); an 8 kb read across an 8.4 kb
+    DEL (full, W 16,385: a width of no whole runs).  ``fill_block`` splits
+    each lane over a cluster of 8 or 16 CTAs (``align_torch.cluster_split``),
+    the row state in shared memory."""
     import numpy as np
 
     from lesv_tpu_torch.sim import mutate_read
@@ -596,12 +599,13 @@ def nw_span_cases(cfg, dev):
         p_ms, pout = once_ms(lambda: at.banded_align_kernel(
             q, s, ql, sl, W, mode, cfg, False))
         eq, dirs_eq, err = _fill_outputs_equal(kout, pout, ql, dirs=True)
+        split = at.fill_split(B, W, dev)
         state = _ext.function("fill", "lesv_fill_state_bytes",
-                              [_ext.I] * 3, ctypes.c_longlong)(W, 0, 4)
+                              [_ext.I] * 3, ctypes.c_longlong)(W, split, 4)
         cells = int(qln.sum()) * W
         emit(dict(phase="fill", kernel="fill", case="nw_span",
                   shape=f"{mode} B={B} Q={Q} W={W}", equal=eq,
-                  dirs_equal=dirs_eq, max_abs_err=err,
+                  dirs_equal=dirs_eq, max_abs_err=err, split=split,
                   global_scratch=state > at.SMEM_CAP,
                   fill_launches=n_launched["fill"], kernel_ms=k_ms,
                   plain_ms=p_ms, kernel_gcells_s=cells / k_ms / 1e6))

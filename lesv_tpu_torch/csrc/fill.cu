@@ -69,28 +69,57 @@
 //    reduces them by shuffles (and across the lane's warps) at the end.
 //  * fill_block, the wide design, for bands wider than 2,048 (the
 //    full-mode deletion bands of 4,096 to 8,192, and the whole-span NW of
-//    the global fallback at bands to 65,536 and more): one CTA of up to
-//    1,024 threads per lane, each thread a run of slots, H/F1/F2/DG and the
-//    F flags in shared memory (or in a global scratch where they do not
-//    fit), E not kept.  The runs are stored interleaved (slot k of every
-//    thread's run side by side), so that a warp's accesses fall in
-//    consecutive elements: no bank conflicts, and whole lines of the
-//    scratch (stored run after run, the accesses of a warp at runs of 64
-//    slots touched 32 lines, and the scratch bands ran 5 to 8 times
-//    slower).  Two block barriers a row: one to publish the warp totals of
+//    the global fallback at bands to 65,536 and more): a lane's band over
+//    the C CTAs of one thread-block cluster (C a power of two up to 16,
+//    chosen by the caller from the launch's lanes and band,
+//    align_torch.cluster_split; C = 1 is one CTA a lane, launched without a
+//    cluster), CTA rank k owning the slots [k nt spt, (k + 1) nt spt).  In
+//    a CTA, up to 1,024 threads, each thread a run of spt slots,
+//    H/F1/F2/DG and the F flags in shared memory (or in a global scratch
+//    where they do not fit), E not kept.  The runs are stored interleaved
+//    (slot k of every thread's run side by side), so that a warp's
+//    accesses fall in consecutive elements: no bank conflicts, and whole
+//    lines of the scratch (stored run after run, the accesses of a warp at
+//    runs of 64 slots touched 32 lines, and the scratch bands ran 5 to 8
+//    times slower).  Two barriers a row: one to publish the warp totals of
 //    the scan (combined by a shuffle scan in every warp), one to publish
 //    each thread's edge values (H, F1, F2 for the next row, E1/E2 for the
-//    neighbour's extension flags).  One lane is one SM, so a lane's rows
-//    set its time: 0.74e9 to 1.12e9 cells a second from W = 4,096 to 65,536
-//    on an H100.  The row's instructions bound it, not its memory traffic:
-//    loads issued four slots ahead, or whole lines for the subject codes
-//    and direction bytes, do not make it faster.
-// The launcher picks the design from W and the state type alone.
+//    neighbour's extension flags).  With C > 1 both are cluster barriers
+//    (barrier.cluster arrive.release / wait.acquire), and the values that
+//    cross a CTA's edge go through distributed shared memory, twice a row:
+//    after phase 1 each CTA sends its scan totals to every higher rank (the
+//    carry into rank k is the max of ranks j < k: no chain over the ranks,
+//    since phase 1's totals take no carry), after phase 2 its outer edges to
+//    its neighbours (diag: H, F1, F2 of its first slot to rank k - 1; full:
+//    H of its last slot to rank k + 1; E1, E2 of its last slot to rank k + 1
+//    for the first slot's extension flags).  The second barrier is split:
+//    a CTA arrives with its edges sent, fills the next row's slots that
+//    need no neighbour, then waits; the first slot's direction byte of a
+//    row is written after that wait.  free_end reduces each CTA's best cell
+//    on rank 0 by the same order; a global end is read by the rank that
+//    owns its slot.  The direction bytes keep one layout, each CTA writing
+//    its own slots, so the traceback sees no difference.
+//    A lane's rows set its time, and the row's instructions bound it, not
+//    its memory traffic (loads issued four slots ahead, or whole lines for
+//    the subject codes and direction bytes, did not make one CTA faster).
+//    On an H100 a slot a thread costs a row about 1 us at runs of up to 4
+//    slots (1.2 us at 16), and the cluster's barriers and exchanges about 2
+//    to 3 us a row: one CTA fills 0.7e9 to 1.1e9 cells a second from W =
+//    4,096 to 65,536; one lane split over 16 CTAs 4.5e9 at W = 16,384, 7.4e9
+//    at 32,768 and 11.2e9 at 65,536 (a slot or two a thread).  So the
+//    caller splits only where that takes at least 3 slots off each
+//    thread's run and leaves a slot a thread, within the clusters the card
+//    holds at once.
+// The launcher picks the design from W and the state type, and takes
+// fill_block's cluster size from its caller (lesv_fill's split).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+
+namespace cg = cooperative_groups;
 
 #define NEG32 (-(1 << 28))
 #define NEG16 (-16384)
@@ -726,51 +755,87 @@ __global__ void __launch_bounds__(Group<NW>::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The wide design: one CTA per lane, row state in shared memory (or a
-// global scratch), two block barriers a row.
+// The wide design: a lane's band over C CTAs of one thread-block cluster (C =
+// 1: one CTA, no cluster), row state in shared memory (or a global scratch).
 
-// threads of a lane: 1,024 from W = 1,024 on, else W in whole warps
-__host__ __device__ inline int block_threads(int W) {
-  return W >= 1024 ? 1024 : ((W + 31) / 32) * 32;
+// halves of a barrier of every thread of the cluster: arrive publishes this
+// thread's stores (to its own CTA's shared memory and to the other CTAs'),
+// wait returns once every thread of the cluster has arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// slots of each row-state array: the band rounded up to whole runs of
-// every thread (runs of ceil(W / threads) slots)
-__host__ __device__ inline size_t block_slots(int W) {
-  const int nt = block_threads(W);
-  return (size_t)((W + nt - 1) / nt) * nt;
+// the same shared variable in the cluster's CTA of rank r
+template <class X>
+__device__ __forceinline__ X* in_rank(X* p, int r) {
+  return cg::this_cluster().map_shared_rank(p, r);
 }
 
-// bytes of row state per lane: H, F1, F2, DG of the state type and the F
+// largest cluster of the wide design
+#define MAX_SPLIT 16
+
+// threads of one of the C CTAs of a lane: for C = 1, 1,024 from W = 1,024
+// on, else W in whole warps; for C > 1, as few threads of whole warps as
+// give every CTA the same runs of ceil(W / (C * 1,024)) slots
+__host__ __device__ inline int block_threads(int W, int C) {
+  if (C == 1) return W >= 1024 ? 1024 : ((W + 31) / 32) * 32;
+  const int spt = (W + C * 1024 - 1) / (C * 1024);
+  return ((W + C * spt - 1) / (C * spt) + 31) / 32 * 32;
+}
+
+// slots of each row-state array of one CTA: its threads' runs of
+// ceil(W / (C * threads)) slots
+__host__ __device__ inline size_t block_slots(int W, int C) {
+  const int nt = block_threads(W, C);
+  return (size_t)((W + C * nt - 1) / (C * nt)) * nt;
+}
+
+// bytes of row state per CTA: H, F1, F2, DG of the state type and the F
 // flag bytes, rounded up to a multiple of 16
-__host__ __device__ inline size_t block_state_bytes(int W, int esz) {
-  const size_t sw = block_slots(W);
+__host__ __device__ inline size_t block_state_bytes(int W, int C, int esz) {
+  const size_t sw = block_slots(W, C);
   return ((4 * sw * esz + sw + 15) / 16) * 16;
 }
 
 // T is the state type (int or short); every value is cut to T where it is
-// produced ((T)(...)), so T = short computes what int16 tensors compute
-template <typename T, bool DIAG, bool FREE_END>
+// produced ((T)(...)), so T = short computes what int16 tensors compute.
+// CL: launched in clusters of C CTAs a lane (C > 1), cluster rank k owning
+// slots [k * nt * spt, (k + 1) * nt * spt); !CL: one CTA a lane, C = 1.
+template <typename T, bool DIAG, bool FREE_END, bool CL>
 __global__ void __launch_bounds__(1024)
     fill_block(const uint8_t* __restrict__ q, const uint8_t* __restrict__ s,
                const int* __restrict__ qlen, const int* __restrict__ slen,
                int Qmax, int Smax, int W, int match, int mism, int go1,
                int ge1, int go2, int ge2, const int NEG, const int THR,
-               uint8_t* gscratch, uint8_t* __restrict__ dirs, int* score,
-               int* end_i, int* end_b, uint8_t* okv) {
+               int C, uint8_t* gscratch, uint8_t* __restrict__ dirs,
+               int* score, int* end_i, int* end_b, uint8_t* okv) {
   extern __shared__ int4 smem[];
   // edge values of each thread's run: H, F1, F2 of its first slot (diag)
   // or H of its last (full) for the next row; E1, E2 of its last slot
   __shared__ int xH[1024], xF1[1024], xF2[1024], xE1[1024], xE2[1024];
   __shared__ int wt1[32], wt2[32], rb[3][32];
-  const int lane = blockIdx.x;
-  uint8_t* base = gscratch
-                      ? gscratch + (size_t)lane * block_state_bytes(W, sizeof(T))
-                      : (uint8_t*)smem;
+  // CL, written by the neighbour CTAs: cedge the edge values of the CTA's
+  // runs' outer neighbours (H, F1, F2 of the next CTA's first slot in diag
+  // mode, H of the previous CTA's last slot in full mode; E1, E2 of the
+  // previous CTA's last slot), ctot the scan totals of the lower CTAs of
+  // the row, cbest (rank 0) every CTA's best cell
+  __shared__ int cedge[5];
+  __shared__ int2 ctot[MAX_SPLIT];
+  __shared__ int cbest[MAX_SPLIT][3];
+  if (!CL) C = 1;
+  const int rank = CL ? (int)cg::this_cluster().block_rank() : 0;
+  const int lane = blockIdx.x / C;
+  uint8_t* base =
+      gscratch ? gscratch + ((size_t)lane * C + rank) *
+                                block_state_bytes(W, C, sizeof(T))
+               : (uint8_t*)smem;
   const int nt = blockDim.x, tid = threadIdx.x;
   const int wl = tid & 31, wid = tid >> 5, nw = nt >> 5;
-  const int spt = (W + nt - 1) / nt;
-  const int b0 = min(tid * spt, W), b1 = min(b0 + spt, W);
+  const int spt = (W + C * nt - 1) / (C * nt);
+  const int b0 = min((rank * nt + tid) * spt, W), b1 = min(b0 + spt, W);
   const bool own = b1 > b0;
   const size_t sw = (size_t)spt * nt;
   T* H = (T*)base;
@@ -788,6 +853,8 @@ __global__ void __launch_bounds__(1024)
   const int Lq = qlen[lane], SL = slen[lane];
   const int L = min(Lq, Qmax);
   uint8_t* dl = dirs + (size_t)lane * (Qmax + 1) * W;
+  // every CTA of the cluster runs before any reaches another's memory
+  if constexpr (CL) cluster_arrive();
 
   // row 0
   for (int b = b0; b < b1; ++b) {
@@ -809,40 +876,47 @@ __global__ void __launch_bounds__(1024)
   xH[tid] = own ? (int)H[at(DIAG ? b0 : b1 - 1)] : NEG;
   xF1[tid] = NEG;
   xF2[tid] = NEG;
-  __syncthreads();
+  if constexpr (CL) {
+    cluster_wait();
+    if (DIAG && tid == 0 && rank > 0) {
+      int* e = in_rank(cedge, rank - 1);
+      e[0] = xH[0];
+      e[1] = NEG;
+      e[2] = NEG;
+    }
+    if (!DIAG && tid == nt - 1 && rank + 1 < C)
+      in_rank(cedge, rank + 1)[0] = xH[tid];
+    cluster_arrive();
+  } else {
+    __syncthreads();
+  }
 
   int best = NEG, bi = 0x7fffffff, bb = 0;
+  // CL: the byte of the run's first slot of the row before, written once
+  // the barrier after that row has brought its left neighbour's E
+  int pe1f = NEG, pe2f = NEG, pd0 = 0;
+  uint8_t* prow = dl;
+  auto first_byte = [&](uint8_t* row, int d0, int e1f, int e2f) {
+    if (own) {
+      int p1, p2;
+      if (tid > 0) {
+        p1 = xE1[tid - 1];
+        p2 = xE2[tid - 1];
+      } else {
+        p1 = cedge[3];
+        p2 = cedge[4];
+      }
+      const bool x1 = b0 == 0 || e1f == (T)(p1 - ge1);
+      const bool x2 = b0 == 0 || e2f == (T)(p2 - ge2);
+      row[b0] = (uint8_t)(d0 | (x1 << 3) | (x2 << 4));
+    }
+  };
   for (int i = 1; i <= L; ++i) {
     const int qc = ql[i - 1];
     // phase 1: sources, H before E, F flags; thread totals of the bases
     int tmax1 = NEG, tmax2 = NEG;
-    int nbH = NEG, nbF1 = NEG, nbF2 = NEG;
-    if (DIAG) {
-      if (tid + 1 < nt) {
-        nbH = xH[tid + 1];
-        nbF1 = xF1[tid + 1];
-        nbF2 = xF2[tid + 1];
-      }
-    } else if (tid > 0) {
-      nbH = xH[tid - 1];
-    }
-    int prevH = nbH;  // full mode: old H[b - 1]
-    for (int b = b0; b < b1; ++b) {
+    auto phase1 = [&](int b, int Hd, int Hu, int F1u, int F2u) {
       const int x = at(b);
-      int Hd, Hu, F1u, F2u;
-      if (DIAG) {
-        Hd = H[x];
-        const bool in = b + 1 < b1;
-        Hu = in ? (int)H[x + nt] : nbH;
-        F1u = in ? (int)F1[x + nt] : nbF1;
-        F2u = in ? (int)F2[x + nt] : nbF2;
-      } else {
-        Hd = prevH;
-        Hu = H[x];
-        prevH = Hu;
-        F1u = F1[x];
-        F2u = F2[x];
-      }
       const int js = DIAG ? i - W2 + b : b;
       const int si = js - 1;
       const int sj = (si >= 0 && si < Smax) ? sl[si] : 255;
@@ -861,10 +935,76 @@ __global__ void __launch_bounds__(1024)
       F1[x] = (T)f1n;
       F2[x] = (T)f2n;
       FL[x] = (uint8_t)(((f1n == f1e) << 5) | ((f2n == f2e) << 6));
+    };
+    if constexpr (CL) {
+      // the slots that need no neighbour's edge while the barrier after
+      // the row before completes, then the edge slot (diag: the run's last,
+      // full: its first)
+      if (DIAG) {
+        for (int b = b0; b + 1 < b1; ++b) {
+          const int x = at(b);
+          phase1(b, H[x], H[x + nt], F1[x + nt], F2[x + nt]);
+        }
+      } else if (own) {
+        int prevH = H[at(b0)];
+        for (int b = b0 + 1; b < b1; ++b) {
+          const int Hu = H[at(b)];
+          phase1(b, prevH, Hu, F1[at(b)], F2[at(b)]);
+          prevH = Hu;
+        }
+      }
+      cluster_wait();
+      if (i > 1) first_byte(prow, pd0, pe1f, pe2f);
+      if (own) {
+        if (DIAG) {
+          int nbH = NEG, nbF1 = NEG, nbF2 = NEG;
+          if (tid + 1 < nt) {
+            nbH = xH[tid + 1];
+            nbF1 = xF1[tid + 1];
+            nbF2 = xF2[tid + 1];
+          } else if (rank + 1 < C) {
+            nbH = cedge[0];
+            nbF1 = cedge[1];
+            nbF2 = cedge[2];
+          }
+          const int x = at(b1 - 1);
+          phase1(b1 - 1, H[x], nbH, nbF1, nbF2);
+        } else {
+          const int nbH = tid > 0 ? xH[tid - 1] : rank > 0 ? cedge[0] : NEG;
+          const int x = at(b0);
+          phase1(b0, nbH, H[x], F1[x], F2[x]);
+        }
+      }
+    } else {
+      int nbH = NEG, nbF1 = NEG, nbF2 = NEG;
+      if (DIAG) {
+        if (tid + 1 < nt) {
+          nbH = xH[tid + 1];
+          nbF1 = xF1[tid + 1];
+          nbF2 = xF2[tid + 1];
+        }
+      } else if (tid > 0) {
+        nbH = xH[tid - 1];
+      }
+      int prevH = nbH;  // full mode: old H[b - 1]
+      for (int b = b0; b < b1; ++b) {
+        const int x = at(b);
+        if (DIAG) {
+          const bool in = b + 1 < b1;
+          phase1(b, H[x], in ? (int)H[x + nt] : nbH,
+                 in ? (int)F1[x + nt] : nbF1, in ? (int)F2[x + nt] : nbF2);
+        } else {
+          const int Hu = H[x];
+          phase1(b, prevH, Hu, F1[x], F2[x]);
+          prevH = Hu;
+        }
+      }
     }
 
     // the scan: inclusive within the warp, warp totals through shared
-    // memory (barrier 1), a shuffle scan of them in every warp
+    // memory (barrier 1), a shuffle scan of them in every warp; CL: the
+    // CTA's total to every higher rank (a cluster barrier), and the carry
+    // of the lower ranks from theirs
     int ia = tmax1, ib = tmax2;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -896,11 +1036,29 @@ __global__ void __launch_bounds__(1024)
         gb = max(gb, yb);
       }
     }
+    if constexpr (CL) {
+      // lane r of warp 0 sends the CTA's total to rank r
+      const int ta = __shfl_sync(FULLMASK, ga, 31);
+      const int tb = __shfl_sync(FULLMASK, gb, 31);
+      if (wid == 0 && wl > rank && wl < C)
+        *in_rank(&ctot[rank], wl) = make_int2(ta, tb);
+      cluster_arrive();
+    }
     ga = __shfl_sync(FULLMASK, ga, (wid + 31) & 31);
     gb = __shfl_sync(FULLMASK, gb, (wid + 31) & 31);
     if (wid > 0) {
       c1 = max(c1, ga);
       c2 = max(c2, gb);
+    }
+    if constexpr (CL) {
+      cluster_wait();
+      int2 r = wl < rank ? ctot[wl] : make_int2(NEG, NEG);
+      for (int d = 1; d < C; d <<= 1) {
+        r.x = max(r.x, __shfl_xor_sync(FULLMASK, r.x, d));
+        r.y = max(r.y, __shfl_xor_sync(FULLMASK, r.y, d));
+      }
+      c1 = max(c1, __shfl_sync(FULLMASK, r.x, 0));
+      c2 = max(c2, __shfl_sync(FULLMASK, r.y, 0));
     }
 
     // phase 2: E from the running prefix max, H, source and flags; the
@@ -950,16 +1108,41 @@ __global__ void __launch_bounds__(1024)
     }
     xE1[tid] = e1p;
     xE2[tid] = e2p;
-    __syncthreads();
-    if (own) {
-      const bool x1 = b0 == 0 || e1f == (T)(xE1[tid - 1] - ge1);
-      const bool x2 = b0 == 0 || e2f == (T)(xE2[tid - 1] - ge2);
-      drow[b0] = (uint8_t)(d0 | (x1 << 3) | (x2 << 4));
+    if constexpr (CL) {
+      // the CTA's outer edges to its neighbours (barrier 2, waited for in
+      // the next row after its inner slots)
+      if (DIAG && tid == 0 && rank > 0) {
+        int* e = in_rank(cedge, rank - 1);
+        e[0] = xH[0];
+        e[1] = xF1[0];
+        e[2] = xF2[0];
+      }
+      if (tid == nt - 1 && rank + 1 < C) {
+        int* e = in_rank(cedge, rank + 1);
+        if (!DIAG) e[0] = xH[tid];
+        e[3] = e1p;
+        e[4] = e2p;
+      }
+      cluster_arrive();
+      pd0 = d0;
+      pe1f = e1f;
+      pe2f = e2f;
+      prow = drow;
+    } else {
+      __syncthreads();
+      first_byte(drow, d0, e1f, e2f);
     }
+  }
+  if constexpr (CL) {
+    cluster_wait();
+    if (L >= 1) first_byte(prow, pd0, pe1f, pe2f);
   }
 
   int sc = 0;
   const int ei = Lq, eb = SL - (DIAG ? Lq - W2 : 0);
+  // the thread that writes the lane's results: thread 0 of rank 0 for
+  // free_end, else thread 0 of the rank that owns the end slot
+  bool writer = tid == 0 && rank == 0;
   if (FREE_END) {
     warp_best(best, bi, bb);
     if (wl == 0) {
@@ -975,13 +1158,35 @@ __global__ void __launch_bounds__(1024)
           bi = rb[1][w];
           bb = rb[2][w];
         }
-  } else if (tid == 0) {
-    // slot c is slot c % spt of thread c / spt's run
+    if constexpr (CL) {
+      // every rank's best to rank 0, reduced there in the same order
+      if (tid == 0) {
+        int* p = in_rank(&cbest[rank][0], 0);
+        p[0] = best;
+        p[1] = bi;
+        p[2] = bb;
+      }
+      cluster_arrive();
+      cluster_wait();
+      if (writer)
+        for (int k = 1; k < C; ++k)
+          if (better(cbest[k][0], cbest[k][1], cbest[k][2], best, bi, bb)) {
+            best = cbest[k][0];
+            bi = cbest[k][1];
+            bb = cbest[k][2];
+          }
+    }
+  } else {
+    // slot c is slot c % spt of thread (c / spt) % nt's run in rank
+    // c / (spt * nt)
     const int c = min(max(eb, 0), W - 1);
-    sc = H[(c % spt) * nt + c / spt];
-    if (sizeof(T) == 2 && sc <= THR) sc = NEG32;
+    writer = tid == 0 && rank == c / (spt * nt);
+    if (writer) {
+      sc = H[(c % spt) * nt + (c / spt) % nt];
+      if (sizeof(T) == 2 && sc <= THR) sc = NEG32;
+    }
   }
-  if (tid == 0)
+  if (writer)
     write_end(lane, W, FREE_END, best, bi, bb, ei, eb, sc, score, end_i,
               end_b, okv);
 }
@@ -992,7 +1197,7 @@ __global__ void __launch_bounds__(1024)
 struct Args {
   const uint8_t *q, *s;
   const int *qlen, *slen;
-  int B, Qmax, Smax, W, match, mism, go1, ge1, go2, ge2, neg, thr;
+  int B, Qmax, Smax, W, split, match, mism, go1, ge1, go2, ge2, neg, thr;
   uint8_t *scratch, *dirs;
   int *score, *end_i, *end_b;
   uint8_t* ok;
@@ -1023,28 +1228,63 @@ static int dispatch_warp(const Args& a) {
   return launch_warp<VT, D, F, 8, 8>(a);
 }
 
+// a cluster size the wide design runs: 1, or a power of two up to
+// MAX_SPLIT (above 8 where the card allows clusters of that size)
+static bool split_ok(int C) {
+  return C >= 1 && C <= MAX_SPLIT && (C & (C - 1)) == 0;
+}
+
+// a launch of `blocks` CTAs of nt threads, in clusters of C CTAs where C > 1
+// (attr holds the cluster's dimension)
+static cudaLaunchConfig_t block_config(int blocks, int nt, size_t smem,
+                                       cudaStream_t st, int C,
+                                       cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(nt);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  return cfg;
+}
+
+// the kernel's caps are shared by every host thread: each is set and the
+// launch queued under one lock, so that another thread's smaller launch
+// cannot lower the shared-memory cap in between
+static std::mutex cap_mu;
+
 template <typename T, bool D, bool F>
 static int launch_block(const Args& a) {
-  const int nt = block_threads(a.W);
-  const size_t smem = a.scratch ? 0 : block_state_bytes(a.W, sizeof(T));
+  const int C = a.split;
+  const int nt = block_threads(a.W, C);
+  const size_t smem = a.scratch ? 0 : block_state_bytes(a.W, C, sizeof(T));
+  auto k = C > 1 ? fill_block<T, D, F, true> : fill_block<T, D, F, false>;
   // with the static edge buffers this passes the 48 KB default, so the
-  // kernel's cap is raised to this launch's size.  The cap belongs to the
-  // kernel, shared by every host thread: it is set and the launch queued
-  // under one lock, so that another thread's smaller launch cannot lower
-  // it in between
-  static std::mutex cap_mu;
+  // kernel's cap is raised to this launch's size; clusters of more than 8
+  // CTAs need the kernel's consent
   std::unique_lock<std::mutex> lk(cap_mu, std::defer_lock);
-  if (smem > 16 * 1024) {
-    lk.lock();
-    cudaError_t e = cudaFuncSetAttribute(
-        fill_block<T, D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fill_block<T, D, F><<<a.B, nt, smem, a.st>>>(
-      a.q, a.s, a.qlen, a.slen, a.Qmax, a.Smax, a.W, a.match, a.mism, a.go1,
-      a.ge1, a.go2, a.ge2, a.neg, a.thr, a.scratch, a.dirs, a.score,
-      a.end_i, a.end_b, a.ok);
+  cudaError_t e = cudaSuccess;
+  if (smem > 16 * 1024 || C > 8) lk.lock();
+  if (smem > 16 * 1024)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      block_config(a.B * C, nt, smem, a.st, C, &attr);
+  e = cudaLaunchKernelEx(&cfg, k, a.q, a.s, a.qlen, a.slen, a.Qmax, a.Smax,
+                         a.W, a.match, a.mism, a.go1, a.ge1, a.go2, a.ge2,
+                         a.neg, a.thr, C, a.scratch, a.dirs, a.score,
+                         a.end_i, a.end_b, a.ok);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1065,28 +1305,63 @@ static int dispatch_mode(int diag, int free_end, const Args& a) {
 
 extern "C" {
 
-// Row state of one lane in bytes, in shared memory or (above the caller's
-// cap) in a global scratch, for a state element of esz bytes (4: int, 2:
-// short); 0 where the register design runs (W up to REG_W), which keeps
-// its state in registers.  free_end no longer changes it.
-long long lesv_fill_state_bytes(int W, int free_end, int esz) {
-  (void)free_end;
+// Row state of one of the `split` CTAs of a lane in bytes, in shared memory
+// or (above the caller's cap) in a global scratch, for a state element of
+// esz bytes (4: int, 2: short); 0 where the register design runs (W up to
+// REG_W), which keeps its state in registers.
+long long lesv_fill_state_bytes(int W, int split, int esz) {
   if (W <= REG_W) return 0;
-  return (long long)block_state_bytes(W, esz);
+  return (long long)block_state_bytes(W, split, esz);
 }
 
-// i16 != 0 runs the short-state variant.  scratch == NULL: row state of
-// the wide design in dynamic shared memory; otherwise a (B,
-// lesv_fill_state_bytes) byte buffer in device memory.
+// Clusters of the wide design that the current device holds at once,
+// as cudaOccupancyMaxActiveClusters reports them for CTAs of 1,024
+// threads: out[k] for clusters of 2 << k CTAs (2, 4, 8, 16), 0 where the
+// device refuses the size.  Returns the first CUDA error of the queries
+// that are not a refusal of size 16.
+int lesv_fill_cluster_limits(int* out) {
+  auto k = fill_block<int, true, false, true>;
+  std::lock_guard<std::mutex> lk(cap_mu);
+  for (int j = 0; j < 4; ++j) {
+    const int C = 2 << j;
+    out[j] = 0;
+    if (C > 8 && cudaFuncSetAttribute(
+                     k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+                     cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = block_config(C, 1024, 0, 0, C, &attr);
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, (void*)k, &cfg);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      if (C > 8) continue;
+      return (int)e;
+    }
+    out[j] = n;
+  }
+  return 0;
+}
+
+// i16 != 0 runs the short-state variant.  split: the CTAs of one cluster
+// that fill one lane of the wide design (1: one CTA a lane, no cluster; a
+// power of two up to MAX_SPLIT; more than 1 only above REG_W, else
+// cudaErrorInvalidValue).  scratch == NULL: row state of the wide design in
+// dynamic shared memory; otherwise a (B * split, lesv_fill_state_bytes)
+// byte buffer in device memory.
 int lesv_fill(const void* q, const void* s, const void* qlen,
               const void* slen, int B, int Qmax, int Smax, int W, int diag,
-              int free_end, int i16, int match, int mism, int go1, int ge1,
-              int go2, int ge2, void* scratch, void* dirs, void* score,
-              void* end_i, void* end_b, void* ok, void* stream) {
+              int free_end, int i16, int split, int match, int mism, int go1,
+              int ge1, int go2, int ge2, void* scratch, void* dirs,
+              void* score, void* end_i, void* end_b, void* ok, void* stream) {
+  if (!split_ok(split) || (split > 1 && W <= REG_W))
+    return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   Args a{(const uint8_t*)q, (const uint8_t*)s, (const int*)qlen,
-         (const int*)slen, B, Qmax, Smax, W, match, mism, go1, ge1, go2,
-         ge2, NEG32, NEG32 / 2, (uint8_t*)scratch, (uint8_t*)dirs,
+         (const int*)slen, B, Qmax, Smax, W, split, match, mism, go1, ge1,
+         go2, ge2, NEG32, NEG32 / 2, (uint8_t*)scratch, (uint8_t*)dirs,
          (int*)score, (int*)end_i, (int*)end_b, (uint8_t*)ok,
          (cudaStream_t)stream};
   if (i16) {

@@ -48,7 +48,9 @@ to the device fill, and apart the pairs of ``_host_route``
 (``chunks_to_host``), and apart again the whole-span NW of the global
 fallback (``fallback_fills``, ``fallback_cells``, ``fallback_kept``, on
 either path) and the part of it the card ran
-(``fallback_device_fills``, ``fallback_device_cells``).
+(``fallback_device_fills``, ``fallback_device_cells``), and of that the
+cells whose lanes ran split over a cluster of CTAs
+(``fallback_split_cells``).
 The host helpers (:func:`align_pairs_host`,
 :func:`global_align_pairs_host` and the band-widening numpy retry) are
 the JAX package's, on the port's native library.
@@ -84,6 +86,7 @@ from lesv_tpu_torch.ops.align_torch import (
     _use_i16,
     banded_align_dispatch,
     banded_align_finish,
+    fill_split,
 )
 from lesv_tpu_torch.ops.cigar import trim_to_exact_match
 from lesv_tpu_torch.parallel import mesh as meshmod
@@ -98,11 +101,14 @@ from lesv_tpu_torch.utils import profiling
 # fallback_kept (batch_align._apply_global_fallback) the pairs sent to it
 # and the answers that replaced the anchored alignment, on either path;
 # fallback_device_fills the pairs global_align_pairs_device solved on the
-# card and fallback_device_cells their cells, every band attempt
+# card and fallback_device_cells their cells, every band attempt, of which
+# fallback_split_cells those of launches whose lanes fill_block split over
+# a cluster of CTAs (align_torch.fill_split above 1)
 FILL_STATS = {"device_fills": 0, "device_cells": 0, "host_fills": 0,
               "host_cells": 0, "host_routed": 0, "chunks_to_host": 0,
               "fallback_fills": 0, "fallback_cells": 0, "fallback_kept": 0,
-              "fallback_device_fills": 0, "fallback_device_cells": 0}
+              "fallback_device_fills": 0, "fallback_device_cells": 0,
+              "fallback_split_cells": 0}
 
 
 _FILL_STATS_LOCK = threading.Lock()
@@ -459,6 +465,7 @@ def global_align_pairs_device(
             if len(q) and len(s)}
     to_host: dict[int, int] = {}
     cells = {i: 0 for i in band}
+    split_cells = 0
 
     def run_launch(idxs: list[int], W: int, mode: str):
         # a launch's rows are its longest query's; in diag mode a subject
@@ -523,6 +530,10 @@ def global_align_pairs_device(
             outs = [f.result() for f in futs]
         band = {}
         for (idxs, W, _), out in zip(launches, outs):
+            if fill_split(len(idxs), W, device) > 1:
+                split_cells += sum(_nw_cells(len(pairs[i][0]),
+                                             len(pairs[i][1]), W)
+                                   for i in idxs)
             for i, a in zip(idxs, out):
                 q, s = pairs[i]
                 if a is not None:
@@ -533,7 +544,8 @@ def global_align_pairs_device(
     on_card = [i for i in cells if i not in to_host]
     _count_fills(fallback_cells=sum(cells.values()),
                  fallback_device_cells=sum(cells.values()),
-                 fallback_device_fills=len(on_card))
+                 fallback_device_fills=len(on_card),
+                 fallback_split_cells=split_cells)
     if to_host:
         hs = sorted(to_host)
         for i, a in zip(hs, _nw_host_many([pairs[i] for i in hs],

@@ -32,9 +32,17 @@ from lesv_tpu_torch import _ext
 NEG = -(2**28)
 NEG16 = -16384          # int16 sentinel (see i16_ok for the bound proof)
 OP_M, OP_I, OP_D, OP_PAD = 0, 1, 2, 255
-# row state of the fill's wide-band design above this many bytes per lane
+# row state of the fill's wide-band design above this many bytes per CTA
 # goes to a global scratch buffer instead of shared memory
 SMEM_CAP = 200 * 1024
+# csrc/fill.cu's fill_block (bands above 2,048) splits a lane's band over a
+# cluster of CTAs of at most 1,024 threads, each CTA at least
+# SPLIT_MIN_SLOTS slots of it (a slot a thread), where that takes at least
+# SPLIT_MIN_GAIN slots off each thread's run a row.  On an H100 a slot a
+# thread costs a row about 1 us, the cluster's two barriers about 2 to 3 us
+# (the split's timings, PERF.md)
+SPLIT_MIN_SLOTS = 1024
+SPLIT_MIN_GAIN = 3
 
 
 def i16_ok(Qmax: int, W: int, cfg: AlignConfig) -> bool:
@@ -246,6 +254,55 @@ def banded_align_kernel(q: torch.Tensor, s: torch.Tensor,
     return dirs, score, end_i, end_b, ok
 
 
+def cluster_split(B: int, W: int, limits: dict[int, int]) -> int:
+    """CTAs of one thread-block cluster that fill each lane of a launch of
+    ``B`` lanes at band ``W`` in ``fill_block``: the largest cluster size
+    of ``limits`` (clusters of 2, 4, 8 and 16 CTAs the card holds at once,
+    0 for a size it refuses; see :func:`cluster_limits`) that leaves every
+    CTA at least ``SPLIT_MIN_SLOTS`` slots and whose ``B`` clusters the
+    card holds at once, where it shortens each thread's run of slots by at
+    least ``SPLIT_MIN_GAIN``; else 1, one CTA a lane.  That is 1 below W
+    4,096, so on every band of the register design (W up to 2,048).  The
+    state type does not enter: both run the same instructions a slot."""
+    C = 1
+    while W // (2 * C) >= SPLIT_MIN_SLOTS and B <= limits.get(2 * C, 0):
+        C *= 2
+
+    def run(c):                 # slots of a thread's run at c CTAs a lane
+        return -(-W // (c * 1024))
+
+    return C if run(1) - run(C) >= SPLIT_MIN_GAIN else 1
+
+
+# clusters of fill_block a card holds at once, by cluster size, per card
+_CLUSTER_LIMITS: dict[int, dict[int, int]] = {}
+
+
+def cluster_limits(dev: torch.device) -> dict[int, int]:
+    """Clusters of 2, 4, 8 and 16 CTAs of ``fill_block`` that the card
+    ``dev`` holds at once (``cudaOccupancyMaxActiveClusters``; 0 where it
+    refuses the size), queried once per card."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lim = _CLUSTER_LIMITS.get(idx)
+    if lim is None:
+        out = (ctypes.c_int * 4)()
+        fn = _ext.function("fill", "lesv_fill_cluster_limits", [_ext.P])
+        with torch.cuda.device(idx):
+            _ext.check(fn(out), "lesv_fill_cluster_limits")
+        lim = _CLUSTER_LIMITS[idx] = {2 << k: out[k] for k in range(4)}
+    return lim
+
+
+def fill_split(B: int, W: int, device) -> int:
+    """The cluster size :func:`fill_cuda` takes for a launch of ``B``
+    lanes at band ``W`` on ``device``: :func:`cluster_split` on a card,
+    1 elsewhere (the plain fill has no CTAs)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 1
+    return cluster_split(B, W, cluster_limits(dev))
+
+
 def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
               free_end: bool = False, i16: bool = False):
     """The fill kernel (``csrc/fill.cu``) on CUDA tensors, with int32 or
@@ -271,19 +328,20 @@ def fill_cuda(q, s, qlen, slen, W: int, mode: str, cfg: AlignConfig,
     end_b = torch.empty_like(score)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     P, I = _ext.P, _ext.I
-    # row state per lane: 0 where the kernel keeps it in registers
+    split = fill_split(B, W, dev)
+    # row state per CTA: 0 where the kernel keeps it in registers
     state = _ext.function("fill", "lesv_fill_state_bytes", [I, I, I],
-                          ctypes.c_longlong)(W, int(free_end),
-                                             2 if i16 else 4)
+                          ctypes.c_longlong)(W, split, 2 if i16 else 4)
     scratch = None
     if state > SMEM_CAP:
-        scratch = torch.empty(B * state, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(B * split * state, dtype=torch.uint8,
+                              device=dev)
     fn = _ext.function("fill", "lesv_fill",
-                       [P, P, P, P] + [I] * 13 + [P] * 7)
+                       [P, P, P, P] + [I] * 14 + [P] * 7)
     with on_dev:
         err = fn(q.data_ptr(), s.data_ptr(), qlen.data_ptr(),
                  slen.data_ptr(), B, Qmax, Smax, W, int(mode == "diag"),
-                 int(free_end), int(i16), cfg.match, cfg.mismatch,
+                 int(free_end), int(i16), split, cfg.match, cfg.mismatch,
                  cfg.gap_open1, cfg.gap_ext1, cfg.gap_open2, cfg.gap_ext2,
                  scratch.data_ptr() if scratch is not None else None,
                  dirs.data_ptr(), score.data_ptr(), end_i.data_ptr(),

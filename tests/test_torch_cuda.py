@@ -212,6 +212,89 @@ def test_traceback_kernel_equals_plain_far_past_the_last_row(dev, mode):
     assert want[1][1] > 17_000
 
 
+# gap costs under which the int16 gate holds for fill_block's bands of
+# 4,096 (queries up to 1,024)
+_CHEAP = AlignConfig(match=1, mismatch=2, gap_open1=2, gap_ext1=1,
+                     gap_open2=10, gap_ext2=1)
+
+
+@pytest.mark.parametrize("C,W,mode,free_end,B,lo,hi,i16,scratch", [
+    (2, 4096, "diag", False, 9, 1500, 3000, False, False),
+    (2, 4097, "full", True, 9, 2000, 4096, False, False),
+    (4, 8192, "diag", True, 8, 2500, 5000, False, False),
+    (4, 8195, "full", False, 8, 4000, 8194, False, False),
+    (8, 16384, "diag", False, 8, 3000, 6000, False, False),
+    # CTAs of 704 threads, the last rank's run ragged
+    (8, 16385, "full", True, 3, 9000, 16384, False, False),
+    (16, 32768, "diag", True, 2, 4000, 8000, False, False),
+    (16, 32769, "full", False, 2, 17000, 24000, False, False),
+    # 16,384 slots a CTA: the row state in the global scratch
+    (2, 32768, "diag", False, 2, 3000, 5000, False, True),
+    (2, 32769, "full", True, 1, 12000, 20000, False, True),
+    # int16 state
+    (2, 4096, "full", True, 16, 300, 1000, True, False),
+    (2, 4100, "diag", False, 16, 300, 1000, True, False)])
+def test_split_fill_block_equals_one_cta_and_plain(
+        dev, monkeypatch, C, W, mode, free_end, B, lo, hi, i16, scratch):
+    """``fill_block`` with each lane's band split over a cluster of C CTAs
+    (``cluster_split`` patched to C) against the same kernel at one CTA a
+    lane and against the plain fill: every live direction byte, score,
+    end cell and ok, on lanes of different query lengths (from 8 lanes on,
+    lanes 0 to 3 the edges of ``_fill_batch``), in both modes and state
+    types, the row state in shared memory or past ``SMEM_CAP``."""
+    import ctypes
+
+    if C > 8 and align_torch.cluster_limits(dev)[C] == 0:
+        pytest.skip(f"the card refuses clusters of {C}")
+    cfg = _CHEAP if i16 else AlignConfig()
+    rng = np.random.default_rng(W + C + B)
+    q, s, qlen, slen = (torch.from_numpy(a).to(dev) for a in _fill_batch(
+        rng, W, mode, B=B, lo=lo, hi=hi, Q=1024 if i16 else None))
+    assert len(set(qlen.tolist())) > 1 or B == 1
+    assert align_torch.i16_ok(q.shape[1], W, cfg) == i16
+    state = _ext.function("fill", "lesv_fill_state_bytes", [_ext.I] * 3,
+                          ctypes.c_longlong)(W, C, 2 if i16 else 4)
+    assert (state > align_torch.SMEM_CAP) == scratch
+    outs = []
+    for c in (C, 1):
+        monkeypatch.setattr(align_torch, "cluster_split",
+                            lambda B_, W_, lim, c=c: c)
+        assert align_torch.fill_split(B, W, dev) == c
+        before = _ext.LAUNCHES["fill_i16" if i16 else "fill"]
+        outs.append(align_torch.fill_cuda(q, s, qlen, slen, W, mode, cfg,
+                                          free_end, i16=i16))
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["fill_i16" if i16 else "fill"] == before + 1
+    plain = align_torch.banded_align_kernel(q, s, qlen, slen, W, mode, cfg,
+                                            free_end, i16=i16)
+    _outputs_equal(outs[0], outs[1], qlen)
+    _outputs_equal(outs[0], plain, qlen)
+    assert outs[0][4].any()
+
+
+@pytest.mark.parametrize("C,W", [(3, 4096), (32, 65536), (2, 2048)])
+def test_fill_refuses_a_cluster_size_it_cannot_run(dev, monkeypatch, C, W):
+    """The launcher takes clusters of a power of two up to 16 CTAs, and
+    more than one only in the wide design: anything else raises."""
+    monkeypatch.setattr(align_torch, "cluster_split", lambda B, W_, lim: C)
+    q, s, qlen, slen = (torch.from_numpy(a).to(dev) for a in _fill_batch(
+        np.random.default_rng(3), W, "diag", B=2, lo=200, hi=400))
+    with pytest.raises(RuntimeError, match="lesv_fill"):
+        align_torch.fill_cuda(q, s, qlen, slen, W, "diag", AlignConfig())
+
+
+def test_cluster_limits_of_the_card(dev):
+    """The card holds clusters of 2, 4 and 8 CTAs of ``fill_block``, at
+    least half its SMs' worth each, and as many or fewer of each larger
+    size; 16 where it allows that size."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lim = align_torch.cluster_limits(dev)
+    assert sorted(lim) == [2, 4, 8, 16]
+    for C in (2, 4, 8):
+        assert lim[C] * C >= sms // 2, lim
+    assert lim[2] >= lim[4] >= lim[8] >= lim[16] >= 0
+
+
 def test_fill_i16_kernel_refuses_a_closed_gate(dev):
     cfg = AlignConfig()
     q = torch.zeros((2, 4096), dtype=torch.uint8, device=dev)
@@ -1018,3 +1101,39 @@ def test_global_fallback_nw_over_a_small_cap_on_the_card(dev, monkeypatch):
     assert card["fallback_device_fills"] == 3
     assert launches["fill"] + launches.get("fill_i16", 0) == 3
     assert launches["traceback"] == 3
+
+
+def test_global_fallback_nw_split_over_clusters_on_the_card(dev,
+                                                            monkeypatch):
+    """The card's NW on ``chip_smoke.nw_spans`` (bands 8,192 and 32,768
+    diag, 16,385 full, each launch's lanes split over a cluster by the
+    rule) counts every cell as split (``fallback_split_cells``), and gives
+    the host NW's answers and lesv_tpu's digest, as it does with every lane
+    on one CTA (``cluster_split`` patched to 1; no split cell)."""
+    from lesv_tpu_torch.ops import align_batch
+
+    cs = _chip_smoke(monkeypatch)
+    pairs = cs.nw_spans()
+    cfg = AlignConfig()
+    want = align_batch.global_align_pairs_host(pairs, cfg)
+    splits = [align_torch.fill_split(B, W, dev)
+              for B, W in ((1, 8_192), (2, 32_768), (1, 16_385))]
+    assert min(splits) > 1, splits
+    stats = []
+    for one in (False, True):
+        if one:
+            monkeypatch.setattr(align_torch, "cluster_split",
+                                lambda B, W, lim: 1)
+        _reset_counts()
+        got = align_batch.global_align_pairs_device(pairs, cfg, dev)
+        stats.append(dict(align_batch.FILL_STATS))
+        for g, w in zip(got, want):
+            assert w is not None and g is not None
+            assert (g.qb, g.qe, g.sb, g.se, g.score) == \
+                (w.qb, w.qe, w.sb, w.se, w.score)
+            np.testing.assert_array_equal(g.ops, w.ops)
+        assert cs.nw_digest(pairs, got) == cs.NW_ANSWERS_SHA256
+    split, one = stats
+    assert split["fallback_split_cells"] == split["fallback_device_cells"] \
+        == one["fallback_device_cells"] > 0
+    assert one["fallback_split_cells"] == 0

@@ -256,3 +256,53 @@ def test_chip_smoke_nw_spans_equal_lesv_tpu():
         chip_smoke.NW_ANSWERS_SHA256
     got = align_batch.global_align_pairs_host(pairs, AlignConfig())
     _assert_same(got, want)
+
+
+@pytest.mark.parametrize("split_from", [None, 1_000, 0])
+def test_split_cells_counted_on_a_patched_card_path(monkeypatch, split_from):
+    """``fallback_split_cells``: the cells of every launch for which
+    ``fill_split`` gives a cluster of CTAs (patched as a card would: lanes
+    at bands from ``split_from`` on split in two, none where it is None),
+    every band attempt; ``fill_split`` asked once a launch, with its lanes
+    and band; the answers and the other counts unchanged, and 0 split
+    cells unpatched on the CPU."""
+    c = _cases()
+    pairs = [c["dele"], c["diag"], c["ins"], c["twin"]]
+    cfg = AlignConfig()
+    align_batch.reset_fill_stats()
+    want = align_batch.global_align_pairs_device(pairs, cfg, device="cpu")
+    plain = dict(align_batch.FILL_STATS)
+    assert plain["fallback_split_cells"] == 0
+    asked = []
+
+    def split(B, W, device):
+        asked.append((B, W))
+        return 2 if split_from is not None and W >= split_from else 1
+
+    launched = []
+    real = align_batch._align_lanes
+
+    def lanes(ps, idxs, Qm, Sm, W, *a, **kw):
+        launched.append((list(idxs), W))
+        return real(ps, idxs, Qm, Sm, W, *a, **kw)
+
+    monkeypatch.setattr(align_batch, "fill_split", split)
+    monkeypatch.setattr(align_batch, "_align_lanes", lanes)
+    align_batch.reset_fill_stats()
+    got = align_batch.global_align_pairs_device(pairs, cfg, device="cpu")
+    st = dict(align_batch.FILL_STATS)
+    _assert_same(got, want)
+    assert sorted(asked) == sorted((len(i), W) for i, W in launched)
+    split_cells = sum(
+        align_batch._nw_cells(len(pairs[i][0]), len(pairs[i][1]), W)
+        for idxs, W in launched for i in idxs
+        if split_from is not None and W >= split_from)
+    assert st.pop("fallback_split_cells") == split_cells
+    plain.pop("fallback_split_cells")
+    assert st == plain
+    if split_from is None:
+        assert split_cells == 0
+    elif split_from == 0:
+        assert split_cells == st["fallback_device_cells"] > 0
+    else:
+        assert 0 < split_cells < st["fallback_device_cells"]
